@@ -1,0 +1,166 @@
+"""Evaluation driver of the port (``crowdnav_tpu/drivers/evaluate.py``):
+greedy TD3 rollouts of N envs per scenario, reporting success rate, mean
+reward and steps, and ego/social safety in the reference's CSV schema.
+
+    python -m crowdnav_tpu_torch.drivers.evaluate --suite train \
+        --checkpoint crowdnav_tpu_torch/assets/final_full_actor.npz
+
+``--checkpoint`` takes an actor exported by ``scripts/export_torch_actor.py``
+(the flax actor arrays and the training run's ``run_config.json``).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import numpy as np
+import torch
+
+from crowdnav_tpu_torch.agents.td3 import TD3, TD3Config
+from crowdnav_tpu_torch.envs.config import ROBOT_PRESETS, make_config
+from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
+from crowdnav_tpu_torch.parallel.runtime import Trainer, TrainerConfig
+from crowdnav_tpu_torch.utils.convert import (flax_actor_to_state_dict,
+                                              npz_to_flax_actor)
+from crowdnav_tpu_torch.utils.device import resolve
+from crowdnav_tpu_torch.utils.logging import EpisodeLogger
+
+SUITES = {
+    "4": [("test_4", b) for b in ("crossing", "towards", "ahead", "random")],
+    "8": [("test_8", b) for b in ("crossing", "towards", "ahead", "random")],
+    "12": [("test_12", b)
+           for b in ("crossing", "towards", "ahead", "random")],
+    "20": [("test_20", b)
+           for b in ("crossing_20", "towards_20", "ahead_20", "random_20")],
+    "train": [("crowd_dense", "crowd")],
+    "train_sparse": [("crowd_sparse", "crowd")],
+    "hard": [("crowd_dense", "crowd_highspeed"), ("crowd_20", "crowd"),
+             ("crowd_20", "crowd_highspeed"), ("test_20", "crossing_fast"),
+             ("test_20", "towards_fast"), ("test_20", "random_fast")],
+}
+
+
+def load_actor_file(path: str):
+    """(flax actor params, run metadata or None) from an exported file."""
+    with np.load(path, allow_pickle=False) as f:
+        arrays = {k: f[k] for k in f.files}
+    meta = None
+    if "run_config" in arrays:
+        meta = json.loads(str(arrays.pop("run_config")))
+    return npz_to_flax_actor(arrays), meta
+
+
+def build_agent(agent_cfg: dict | None, obs_dim: int, device) -> TD3:
+    """A TD3 agent with the training run's config (unknown keys dropped)."""
+    if agent_cfg is None:
+        return TD3(TD3Config(), obs_dim, device=device)
+    fields = {f.name for f in dataclasses.fields(TD3Config)}
+    cfg = TD3Config(**{k: v for k, v in agent_cfg.items() if k in fields})
+    return TD3(cfg, obs_dim, device=device)
+
+
+def evaluate_scenario(agent: TD3, world: str, behavior: str, n_envs: int,
+                      max_steps: int, seed: int, jitter: float = 0.0,
+                      ablation: str | None = None, robot: str | None = None,
+                      device="cuda"):
+    """One scenario, ``n_envs`` greedy envs, one chunk of ``max_steps``;
+    only episodes that complete inside the chunk count. With ``jitter``
+    every env and every auto-reset (through a reset bank of ``n_envs``
+    entries) starts from a distinct randomized spawn."""
+    cfg = make_config(world, behavior, max_steps=max_steps, jitter=jitter,
+                      ablation=ablation, robot=robot)
+    env = CrowdEnv(cfg, device=device, seed=seed)
+    if env.obs_dim != agent.obs_dim:
+        raise ValueError(f"agent obs_dim {agent.obs_dim} != env obs_dim "
+                         f"{env.obs_dim}")
+    tcfg = TrainerConfig(n_envs=n_envs, rollout_chunk=max_steps,
+                         learning=False, reset_bank=n_envs if jitter else 0)
+    trainer = Trainer(env, agent, tcfg)
+    state = trainer.init(seed)
+    if env.device.type == "cuda":
+        torch.cuda.synchronize(env.device)
+    t0 = time.perf_counter()
+    state = trainer.rollout_chunk(state)
+    summary, state = trainer.drain_stats(state)
+    summary["timelapse"] = round(time.perf_counter() - t0, 2)
+    summary["scenario"] = f"{world}/{behavior}"
+    return summary
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--algo", default="td3", choices=["td3"])
+    p.add_argument("--checkpoint", default=None,
+                   help="actor file written by scripts/export_torch_actor.py")
+    p.add_argument("--suite", default="20", choices=list(SUITES))
+    p.add_argument("--ablation", default=None)
+    p.add_argument("--robot", default=None, choices=list(ROBOT_PRESETS))
+    p.add_argument("--n-envs", type=int, default=256)
+    p.add_argument("--max-steps", type=int, default=500)
+    p.add_argument("--outdir", default="results")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--jitter", type=float, default=1.0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device, 'cuda' (default) or 'cpu'")
+    args = p.parse_args(argv)
+    try:
+        device = resolve(args.device)
+    except RuntimeError as e:
+        raise SystemExit(str(e))
+
+    params, meta, agent_cfg = None, None, None
+    if args.checkpoint:
+        params, meta = load_actor_file(args.checkpoint)
+    if meta is not None:
+        if meta["algo"] != args.algo:
+            raise SystemExit(f"--algo {args.algo} conflicts with checkpoint "
+                             f"metadata (trained as {meta['algo']!r})")
+        ckpt_abl = meta.get("ablation")
+        if args.ablation is None:
+            args.ablation = ckpt_abl
+        elif args.ablation != ckpt_abl:
+            raise SystemExit(f"--ablation {args.ablation} conflicts with "
+                             f"checkpoint metadata (trained with "
+                             f"ablation={ckpt_abl!r})")
+        ckpt_robot = meta.get("robot")
+        if args.robot is None:
+            args.robot = ckpt_robot
+        elif ckpt_robot is not None and args.robot != ckpt_robot:
+            raise SystemExit(f"--robot {args.robot} conflicts with "
+                             f"checkpoint metadata (trained with "
+                             f"robot={ckpt_robot!r})")
+        agent_cfg = meta["agent_config"]
+    world, behavior = SUITES[args.suite][0]
+    obs_dim = make_config(world, behavior, ablation=args.ablation,
+                          robot=args.robot).state_dim_risk
+    if meta is not None and meta.get("obs_dim") not in (None, obs_dim):
+        raise SystemExit(f"checkpoint obs_dim {meta['obs_dim']} != eval env "
+                         f"obs_dim {obs_dim} (world/ablation mismatch)")
+    agent = build_agent(agent_cfg, obs_dim, device)
+    if params is not None:
+        agent.load_actor(flax_actor_to_state_dict(params))
+    else:
+        agent.init(args.seed)
+
+    logger = EpisodeLogger(args.outdir, f"{args.algo}_training_test")
+    results = []
+    for i, (world, behavior) in enumerate(SUITES[args.suite]):
+        summary = evaluate_scenario(
+            agent, world, behavior, args.n_envs, args.max_steps,
+            args.seed + i, jitter=args.jitter, ablation=args.ablation,
+            robot=args.robot, device=device)
+        logger.record_summary(summary, 0, summary["timelapse"])
+        print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                          for k, v in summary.items()}), flush=True)
+        results.append(summary)
+    overall = sum(r["success_rate"] for r in results) / len(results)
+    print(json.dumps({"suite": args.suite,
+                      "overall_success_rate": round(overall, 4)}),
+          flush=True)
+    return results
+
+
+if __name__ == "__main__":
+    main()

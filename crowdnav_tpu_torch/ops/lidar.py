@@ -1,0 +1,112 @@
+"""Batched 359-beam lidar raycast (port of ``crowdnav_tpu/ops/lidar.py``
+and of the Pallas raycast ``crowdnav_tpu/ops/lidar_pallas.py``).
+
+Beam ``i`` of the observation points at world angle ``yaw - i deg``. The
+direction of each beam comes from the angle-addition identity against the
+per-beam tables ``cos(i deg)``, ``sin(i deg)``, as ``lidar._beam_trig`` does.
+
+:func:`scan_batch` is the wrapper of the CUDA raycast kernel
+(``kernels/csrc/raycast.cu``): on CUDA tensors it launches the kernel, on
+CPU tensors it runs :func:`raycast_plain`, the same arithmetic in PyTorch.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from crowdnav_tpu_torch.utils import numerics as nm
+
+INF = float("inf")
+EPS = nm.f32(1e-12)
+
+
+@functools.lru_cache(maxsize=8)
+def _tables_cpu(n_scans: int):
+    a = torch.arange(n_scans, dtype=torch.float32) * nm.f32(math.pi / 180.0)
+    return nm.cos(a), nm.sin(a)
+
+
+def beam_tables(n_scans: int, device="cpu"):
+    """``(cos(i deg), sin(i deg))`` for i < ``n_scans``, float32, as the
+    JAX package's compiler folds them (the C library's ``cosf``/``sinf``
+    of ``f32(i) * f32(pi/180)``)."""
+    ca, sa = _tables_cpu(n_scans)
+    return ca.to(device), sa.to(device)
+
+
+def beam_trig(yaw, n_scans: int):
+    """Per-beam world-frame direction components ``(dx, dy)``, each
+    (N, n_scans), for ``yaw`` (N,)."""
+    ca, sa = beam_tables(n_scans, yaw.device)
+    cy, sy = nm.cos(yaw)[:, None], nm.sin(yaw)[:, None]
+    return nm.fma(cy, ca, sy * sa), nm.fma(sy, ca, -(cy * sa))
+
+
+def box_inside(px, py, dx, dy, half):
+    """Exit distance of each ray from inside the room [-half, half]^2."""
+    small_x, small_y = torch.abs(dx) < EPS, torch.abs(dy) < EPS
+    fx = torch.where(small_x, EPS, dx)
+    fy = torch.where(small_y, EPS, dy)
+    h = nm.f32(half)
+    tx = (torch.sign(fx) * h - px) / fx
+    ty = (torch.sign(fy) * h - py) / fy
+    tx = torch.where(small_x, INF, tx)
+    ty = torch.where(small_y, INF, ty)
+    return torch.minimum(tx, ty)
+
+
+def circle_hit(px, py, dx, dy, cx, cy, r2):
+    """Forward hit distance of each ray on one circle per env (+inf on a
+    miss); ``cx``/``cy`` broadcast against the beams, ``r2`` the float32
+    squared radius."""
+    relx, rely = cx - px, cy - py
+    b = nm.fma(relx, dx, rely * dy)
+    rel2 = nm.fma(relx, relx, rely * rely)
+    disc = r2 - nm.fma(-b, b, rel2)
+    t = b - nm.sqrt(torch.clamp_min(disc, 0.0))
+    return torch.where((disc >= 0.0) & (t >= 0.0), t, INF)
+
+
+def raycast_plain(pos, cy, sy, ca, sa, peds, half, r2, min_range,
+                  max_range):
+    """Plain version of the raycast kernel: (N, B) clipped ranges from
+    ``pos`` (N, 2), ``cos(yaw)``/``sin(yaw)`` (N,), the beam tables (B,)
+    and ``peds`` (N, P, 2)."""
+    cy, sy = cy[:, None], sy[:, None]
+    dx, dy = nm.fma(cy, ca, sy * sa), nm.fma(sy, ca, -(cy * sa))
+    px, py = pos[:, 0:1], pos[:, 1:2]
+    t = box_inside(px, py, dx, dy, half)
+    for p in range(peds.shape[1]):
+        t = torch.minimum(t, circle_hit(px, py, dx, dy, peds[:, p, 0:1],
+                                        peds[:, p, 1:2], r2))
+    return torch.clamp(t, min_range, max_range)
+
+
+def scan_batch(pos, yaw, ped_pos, ped_radius, room_half, max_range,
+               min_range, n_scans: int = 359):
+    """(N, 2), (N,), (N, P, 2) -> (N, n_scans) observation-order ranges,
+    the vmapped ``lidar.scan`` of the JAX package."""
+    ca, sa = beam_tables(n_scans, pos.device)
+    cy, sy = nm.cos(yaw), nm.sin(yaw)
+    args = (pos, cy, sy, ca, sa, ped_pos, nm.f32(room_half),
+            nm.f32(ped_radius * ped_radius), nm.f32(min_range),
+            nm.f32(max_range))
+    if pos.device.type == "cpu":
+        return raycast_plain(*args)
+    from crowdnav_tpu_torch.kernels import build
+    out = build.raycast(*args)
+    scan_batch.launches += 1
+    return out
+
+
+scan_batch.launches = 0
+
+
+def scan_points(pos, yaw, scans, n_scans: int = 359):
+    """World-frame endpoint of every beam, rounded to 3 decimals:
+    (N, n_scans, 2)."""
+    dx, dy = beam_trig(yaw, n_scans)
+    return nm.round3(torch.stack([nm.fma(scans, dx, pos[:, 0:1]),
+                                  nm.fma(scans, dy, pos[:, 1:2])], -1))

@@ -1,0 +1,129 @@
+"""Float32 arithmetic rules shared by the plain code and the CUDA kernels.
+
+The JAX package is the reference, and its step program is always jitted.
+Jitted XLA on the CPU does four things that eager PyTorch does not, and the
+observation is rounded to 3 decimals, so a one-ulp difference anywhere
+upstream can flip an observed value. Every module of the port follows
+these rules, and every kernel in ``kernels/csrc`` does the same arithmetic:
+
+1. ``x / c`` with a Python-float ``c`` is compiled to ``x * f32(1/f32(c))``
+   (:func:`div_const`); ``jnp.round(x, d)`` is ``rint(x * 10^d) * f32(10^-d)``
+   (:func:`round_dec`, :func:`round3`). In CUDA: ``rintf(x*1000.f)*0.001f``.
+2. ``c / v`` is a true division. PyTorch's ``c / tensor`` is
+   ``tensor.reciprocal() * c``, so write it as :func:`rdiv`.
+3. XLA's CPU backend contracts ``a*b + c`` into one fused multiply-add, with
+   the first product of a sum fused: ``a*b + c*d == fma(a, b, c*d)``, and
+   the norm along an axis of size 2 is ``sqrt(fma(y, y, x*x))``
+   (:func:`norm2`), while the norm of a whole per-env 2-vector is the
+   unfused ``sqrt(x*x + y*y)`` (:func:`vec_norm2`). The plain code writes each such
+   site with :func:`fma`; the kernels use ``fmaf`` there and build with
+   ``-fmad=false`` so the compiler contracts nothing else.
+4. ``sqrt`` is correctly rounded, and ``cos``/``sin``/``atan2`` are the C
+   library's float functions. PyTorch's CPU kernels differ in the last ulp;
+   :func:`sqrt` goes through float64 (exact after rounding), and on CPU
+   tensors :func:`cos`, :func:`sin` and :func:`atan2` call the C library's
+   ``cosf``/``sinf``/``atan2f``. On CUDA tensors they are PyTorch's own.
+"""
+from __future__ import annotations
+
+import ctypes
+import ctypes.util
+import functools
+
+import numpy as np
+import torch
+
+F32 = torch.float32
+
+
+def f32(c: float) -> float:
+    """The float32 value nearest ``c``, as a Python float."""
+    return float(np.float32(c))
+
+
+def recip_f32(c: float) -> float:
+    """``f32(1 / f32(c))``: the multiplier XLA substitutes for ``/ c``."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` for a Python-float constant ``c``, as jitted XLA computes it."""
+    return x * recip_f32(c)
+
+
+def rdiv(c: float, v: torch.Tensor) -> torch.Tensor:
+    """``c / v`` for a constant ``c``: a true float32 division."""
+    return torch.full_like(v, f32(c)) / v
+
+
+def round_dec(x: torch.Tensor, decimals: int) -> torch.Tensor:
+    """``jnp.round(x, decimals)`` under jit: round half to even of
+    ``x * 10^d``, then times ``f32(10^-d)``."""
+    scale = float(10 ** decimals)
+    return torch.round(x * f32(scale)) * recip_f32(scale)
+
+
+def round3(x: torch.Tensor) -> torch.Tensor:
+    return round_dec(x, 3)
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """Fused ``a*b + c`` rounded once to float32 (through float64: the
+    product of two floats is exact there)."""
+    def d(v):
+        return v.double() if isinstance(v, torch.Tensor) else float(v)
+    out = d(a) * d(b) + d(c)
+    return out.float()
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root."""
+    return torch.sqrt(x.double()).float()
+
+
+def norm2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``jnp.linalg.norm(v, axis=-1)`` of ``v = (x, y)`` under jit."""
+    return sqrt(fma(y, y, x * x))
+
+
+def vec_norm2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``jnp.linalg.norm(v)`` of a whole per-env 2-vector ``v = (x, y)``
+    under jit and vmap: no fused multiply-add."""
+    return sqrt(x * x + y * y)
+
+
+@functools.lru_cache(maxsize=1)
+def _libm():
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    for name in ("cosf", "sinf"):
+        getattr(lib, name).restype = ctypes.c_float
+        getattr(lib, name).argtypes = [ctypes.c_float]
+    lib.atan2f.restype = ctypes.c_float
+    lib.atan2f.argtypes = [ctypes.c_float, ctypes.c_float]
+    return lib
+
+
+def _libm_map(fn, *xs: torch.Tensor) -> torch.Tensor:
+    x0 = xs[0]
+    cols = [x.detach().to(F32).reshape(-1).tolist() for x in xs]
+    out = np.fromiter((fn(*v) for v in zip(*cols)), np.float32,
+                      count=x0.numel())
+    return torch.from_numpy(out).reshape(x0.shape)
+
+
+def cos(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return _libm_map(_libm().cosf, x)
+    return torch.cos(x)
+
+
+def sin(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return _libm_map(_libm().sinf, x)
+    return torch.sin(x)
+
+
+def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    if y.device.type == "cpu":
+        return _libm_map(_libm().atan2f, y, x)
+    return torch.atan2(y, x)

@@ -1,0 +1,137 @@
+"""Rules of the PyTorch port: it imports nothing of JAX or of the JAX
+package, its entry points refuse ``device="cuda"`` without a card, its
+kernel wrappers send every tensor that is not on the CPU to the kernel
+(never to the plain version), and its kernels build without fast math."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "crowdnav_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "crowdnav_tpu",
+             "pytest", "tests")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    with open(path) as fp:
+        tree = ast.parse(fp.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_import_no_jax_and_nothing_of_the_jax_package():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [(os.path.relpath(f, ROOT), m) for f in files
+           for m in _imported_roots(f) if m in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_imports_with_jax_blocked():
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        BLOCKED = {FORBIDDEN!r}
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import crowdnav_tpu_torch
+        for m in pkgutil.walk_packages(crowdnav_tpu_torch.__path__,
+                                       "crowdnav_tpu_torch."):
+            importlib.import_module(m.name)
+        import chip_smoke
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal of device='cuda' without a card")
+
+
+def test_entry_points_refuse_cuda_without_a_card():
+    _no_cuda()
+    from crowdnav_tpu_torch.agents.td3 import TD3, TD3Config
+    from crowdnav_tpu_torch.drivers import evaluate
+    from crowdnav_tpu_torch.envs.config import make_config
+    from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
+    from crowdnav_tpu_torch.envs.world import init_state
+    cfg = make_config("crowd_dense", "crowd")
+    with pytest.raises(RuntimeError):
+        CrowdEnv(cfg)                       # default device is "cuda"
+    with pytest.raises(RuntimeError):
+        TD3(TD3Config(), cfg.state_dim_risk)
+    with pytest.raises(SystemExit):
+        evaluate.main(["--n-envs", "2", "--max-steps", "2"])
+    with pytest.raises(RuntimeError):
+        init_state(cfg, 2)
+
+
+def test_wrappers_send_non_cpu_tensors_to_the_kernel():
+    """A tensor that is not on the CPU never reaches the plain version:
+    the wrapper hands it to the kernel's binding, which refuses anything
+    but a CUDA tensor, and the launch count does not move."""
+    from crowdnav_tpu_torch.envs.config import make_config
+    from crowdnav_tpu_torch.envs.world import init_state
+    from crowdnav_tpu_torch.ops import lidar, risk
+    from crowdnav_tpu_torch.ops.risk_kernel import track_cp_topk_batch
+    meta = torch.device("meta")
+    n, p = 4, 14
+    with pytest.raises(ValueError, match="CUDA"):
+        lidar.scan_batch(torch.zeros(n, 2, device=meta),
+                         torch.zeros(n, device=meta),
+                         torch.zeros(n, p, 2, device=meta), 0.05, 1.45, 0.6,
+                         0.08)
+    assert lidar.scan_batch.launches == 0
+    cfg = make_config("crowd_dense", "crowd")
+    st = init_state(cfg, n, "cpu")
+    segs = risk.Segments(
+        *(torch.zeros(n, cfg.max_segments, *s, dtype=d, device=meta)
+          for s, d in (((), torch.bool), ((), torch.bool), ((), torch.bool),
+                       ((2,), torch.float32), ((), torch.float32),
+                       ((), torch.int32))))
+    tracks = st.tracks.map(lambda a: a.to(meta))
+    with pytest.raises(ValueError, match="CUDA"):
+        track_cp_topk_batch(cfg, segs, tracks, st.pos.to(meta),
+                            st.prev_pos.to(meta),
+                            torch.ones(n, dtype=torch.bool, device=meta))
+    assert track_cp_topk_batch.launches == 0
+
+
+def test_build_uses_one_exact_nvcc_call():
+    from crowdnav_tpu_torch.kernels import build
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "-fmad=false" in flags and "sm_90a" in flags
+    with open(build.__file__) as fp:
+        text = fp.read()
+    for src in build.sources():
+        with open(src) as fp:
+            text += fp.read()
+    assert "use_fast_math" not in text
+    assert "cpp_extension" not in text and "torch/extension.h" not in text
+    assert {s.name for s in build.sources()} == {"raycast.cu",
+                                                 "track_cp_topk.cu"}

@@ -1,0 +1,166 @@
+"""Helpers of the PyTorch port's parity tests (``tests/test_torch_*.py``):
+moving JAX package state into the port through numpy, and the random
+tracker populations of ``tests/test_risk_pallas.py`` rebuilt from numpy
+seeds so that both packages get the same inputs."""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from crowdnav_tpu.envs.world import TrackState as JTrackState
+from crowdnav_tpu.ops import risk as jrisk
+from crowdnav_tpu_torch.envs import world as tworld
+from crowdnav_tpu_torch.ops import risk as trisk
+
+
+def to_torch(a):
+    return torch.from_numpy(np.array(a))
+
+
+def env_state_to_torch(js) -> tworld.EnvState:
+    """Batched JAX EnvState -> the port's EnvState (the key is dropped)."""
+    kw = {}
+    for f in dataclasses.fields(tworld.EnvState):
+        v = getattr(js, f.name)
+        if f.name == "tracks":
+            kw[f.name] = tworld.TrackState(**{
+                g.name: to_torch(getattr(v, g.name))
+                for g in dataclasses.fields(tworld.TrackState)})
+        else:
+            kw[f.name] = to_torch(v)
+    return tworld.EnvState(**kw)
+
+
+def assert_env_state_equal(ts: tworld.EnvState, js, msg=""):
+    """Every field of the port's state bit-equal to the JAX state's."""
+    for f in dataclasses.fields(tworld.EnvState):
+        if f.name == "tracks":
+            for g in dataclasses.fields(tworld.TrackState):
+                np.testing.assert_array_equal(
+                    getattr(ts.tracks, g.name).numpy(),
+                    np.asarray(getattr(js.tracks, g.name)),
+                    err_msg=f"{msg} tracks.{g.name}")
+        else:
+            np.testing.assert_array_equal(
+                getattr(ts, f.name).numpy(), np.asarray(getattr(js, f.name)),
+                err_msg=f"{msg} {f.name}")
+
+
+def random_population(cfg, seed: int, n: int):
+    """Random but plausible segments and tracks (as
+    ``tests/test_risk_pallas.py``), positions on a 1/8 grid so that IOU
+    ties occur. Returns numpy dicts."""
+    rng = np.random.default_rng(seed)
+    S, T = cfg.max_segments, cfg.max_tracks
+    f32 = np.float32
+    seg_valid = rng.uniform(size=(n, S)) < 0.4
+    segs = dict(
+        valid=seg_valid,
+        is_obstacle=seg_valid & (rng.uniform(size=(n, S)) < 0.7),
+        confirmed=seg_valid & (rng.uniform(size=(n, S)) < 0.8),
+        center_pos=(np.round(rng.uniform(-1.2, 1.2, (n, S, 2)) * 8) / 8
+                    ).astype(f32),
+        center_dist=rng.uniform(0.08, 0.62, (n, S)).astype(f32),
+        count=np.where(seg_valid, 5, 0).astype(np.int32))
+    t_valid = rng.uniform(size=(n, T)) < 0.5
+    tpos = (np.round(rng.uniform(-1.2, 1.2, (n, T, 2)) * 8) / 8).astype(f32)
+    tracks = dict(
+        valid=t_valid, pos=tpos,
+        prev_pos=(tpos + rng.normal(size=(n, T, 2)) * 0.03).astype(f32),
+        has_prev=t_valid & (rng.uniform(size=(n, T)) < 0.8),
+        dist=rng.uniform(0.08, 0.62, (n, T)).astype(f32),
+        speed=(np.abs(rng.normal(size=(n, T))) * 0.3).astype(f32),
+        vel=(rng.normal(size=(n, T, 2)) * 0.1).astype(f32))
+    pos = rng.uniform(-1.0, 1.0, (n, 2)).astype(f32)
+    prev = (pos - rng.normal(size=(n, 2)) * 0.03).astype(f32)
+    cc = np.arange(n) % 7 != 0
+    return segs, tracks, pos, prev, cc
+
+
+def edge_population(cfg):
+    """The edge cases of ``tests/test_risk_pallas.py``, plus CP ties and a
+    full table: 0 nothing; 1 all tracks valid, no segments; 2 segments only
+    (mass insertion); 3 identical segments (IOU tie); 4 twelve tracks on a
+    stack of identical segments (CP ties); 5 every slot matched with
+    obstacles left over."""
+    S, T, n = cfg.max_segments, cfg.max_tracks, 6
+    f32 = np.float32
+    seg_valid = np.zeros((n, S), bool)
+    seg_valid[2, :10] = seg_valid[3, :2] = seg_valid[4, :12] = True
+    seg_valid[5] = True
+    cpos = np.zeros((n, S, 2), f32)
+    cpos[3, :2] = 0.5
+    cpos[4, :12] = (0.3, 0.2)
+    cpos[5, :, 0] = np.linspace(-1.2, 1.2, S)
+    cpos[5, :, 1] = 0.4
+    segs = dict(valid=seg_valid, is_obstacle=seg_valid, confirmed=seg_valid,
+                center_pos=cpos, center_dist=np.full((n, S), 0.3, f32),
+                count=seg_valid.astype(np.int32) * 5)
+    t_valid = np.zeros((n, T), bool)
+    t_valid[1] = t_valid[5] = True
+    t_valid[3, 0] = True
+    t_valid[4, :12] = True
+    tpos = np.zeros((n, T, 2), f32)
+    tpos[3, 0] = 0.5
+    tpos[4, :12] = (0.31, 0.2)
+    tpos[5] = cpos[5, :T] + np.float32(0.01)
+    tracks = dict(valid=t_valid, pos=tpos, prev_pos=np.zeros((n, T, 2), f32),
+                  has_prev=t_valid.copy(), dist=np.full((n, T), 0.4, f32),
+                  speed=np.full((n, T), 0.2, f32),
+                  vel=np.zeros((n, T, 2), f32))
+    pos = np.tile(np.array([[0.1, -0.1]], f32), (n, 1))
+    prev = np.tile(np.array([[0.08, -0.12]], f32), (n, 1))
+    return segs, tracks, pos, prev, np.ones(n, bool)
+
+
+def population_jax(segs, tracks, pos, prev, cc):
+    return (jrisk.Segments(**{k: jnp.asarray(v) for k, v in segs.items()}),
+            JTrackState(**{k: jnp.asarray(v) for k, v in tracks.items()}),
+            jnp.asarray(pos), jnp.asarray(prev), jnp.asarray(cc))
+
+
+def population_torch(segs, tracks, pos, prev, cc):
+    return (trisk.Segments(**{k: to_torch(v) for k, v in segs.items()}),
+            tworld.TrackState(**{k: to_torch(v) for k, v in tracks.items()}),
+            to_torch(pos), to_torch(prev), to_torch(cc))
+
+
+def chain_xla(cfg, segs, tracks, pos, prev, cc):
+    """The JAX package's XLA chain update_tracks -> collision_probabilities
+    -> select_top_k with the perceive-level reductions, vmapped and jitted."""
+    def one(sg, tr, p, pp, c):
+        nt = jrisk.update_tracks(cfg, tr, sg)
+        cp, ego = jrisk.collision_probabilities(cfg, nt, p, pp)
+        live = c & jnp.any(nt.valid)
+        top_cp, top_pv = jrisk.select_top_k(cfg, nt, cp, live, p)
+        cp_max = jnp.where(live, jnp.max(top_cp), 0.0)
+        ego_cp = jnp.where(live, jnp.max(jnp.where(nt.valid, ego, 0.0)), 0.0)
+        return nt, top_cp, top_pv, cp_max, ego_cp
+    return jax.jit(jax.vmap(one))(segs, tracks, pos, prev, cc)
+
+
+CHAIN_FIELDS = ("valid", "pos", "prev_pos", "has_prev", "dist", "speed",
+                "vel", "top_cp", "top_pose_vel", "cp_max", "ego_cp")
+
+
+def chain_leaves(out):
+    """Flat list of the chain's outputs in CHAIN_FIELDS order, as numpy."""
+    trk, top_cp, top_pv, cp_max, ego_cp = out
+    vals = [getattr(trk, f) for f in CHAIN_FIELDS[:7]]
+    vals += [top_cp, top_pv, cp_max, ego_cp]
+    return [v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for v in vals]
+
+
+def assert_chain_match(got, ref, msg=""):
+    """bool outputs exact; float outputs within 1e-6 (abs and rel)."""
+    for name, g, r in zip(CHAIN_FIELDS, chain_leaves(got), chain_leaves(ref)):
+        if r.dtype == bool:
+            np.testing.assert_array_equal(g, r, err_msg=f"{msg} {name}")
+        else:
+            np.testing.assert_allclose(g, r, rtol=1e-6, atol=1e-6,
+                                       err_msg=f"{msg} {name}")
