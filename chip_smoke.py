@@ -6,37 +6,60 @@
 Phases, each printing one JSON line:
 
 1. ``device``: the card, its power limit, TF32 switched off;
-2. ``build``: the one ``nvcc`` call that builds every kernel;
-3. ``raycast``: the raycast kernel against its plain version on the card;
+2. ``build``: the one ``nvcc`` call that builds every kernel of the port,
+   and beside it, started together, the build of the kernels' first designs
+   (``scripts/first_design_kernels/``), kept as a timing baseline;
+3. ``raycast``: the raycast kernel against its plain version on the card,
+   then its device time at 1,024 and 16,384 envs;
 4. ``track_cp_topk``: the tracker -> CP -> top-K kernel against its plain
-   version, on random populations and edge cases;
+   version, on random populations and edge cases (also at K = 1 and at
+   sizes the kernel takes at run time), then its device time;
 5. ``evaluate``: the port's evaluation driver, greedy TD3 on suite
    ``train`` with the exported ``final_full`` actor, 1,024 envs x 500 steps,
    with each kernel's launch count on that run;
-6. ``kernels``: one line with each kernel's times, bound and launches.
+6. ``kernels``: one line with each kernel's times, bounds and launches.
+
+Kernel times are device time alone (``kernels/timing.py``): a burst of
+wrapper calls queued behind ``torch.cuda._sleep``, over input copies that
+keep each launch's bytes out of the L2 cache, at 1,024 envs (the evaluate
+path) and 16,384 envs (the training batch of ``bench.py``). ``ms`` and
+``bound_ms`` are at 16,384 envs.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; without a CUDA device it fails at once.
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 N_BIG = 16384
 N_ODD = 1000
 EVAL_ENVS = 1024
 EVAL_STEPS = 500
-REPS = 20
+SHAPES = (EVAL_ENVS, N_BIG)
 JAX_RECORD = (5655, 5766)   # results/r5/final_full/td3_training_test.csv
-H100_BYTES_PER_S = 3.35e12
-H100_F32_FLOPS = 67e12
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FIRST_DESIGN = os.path.join(ROOT, "scripts", "first_design_kernels")
+# C interface of the first designs: every pointer, then the sizes, the
+# float32 constants and the stream
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+FIRST_DESIGN_SIGNATURES = {
+    "crowdnav_raycast": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_P],
+    "crowdnav_track_cp_topk": [_P] * 24 + [_I] * 4 + [_F] * 8 + [_P],
+}
+TIMING = ("device-only: bursts of wrapper calls queued behind "
+          "torch.cuda._sleep, median of 3 bursts, inputs rotated over "
+          "copies so that every launch misses L2 (kernels/timing.py); "
+          "plain_ms: an event pair around one call, host time included")
 
 
 def emit(obj):
@@ -49,22 +72,6 @@ def wilson(k, n, z=1.96):
     mid = (p + z * z / (2 * n)) / den
     half = z * math.sqrt(p * (1 - p) / n + z * z / (4 * n * n)) / den
     return [round(mid - half, 4), round(mid + half, 4)]
-
-
-def time_ms(fn, torch):
-    """Median milliseconds of ``fn`` over REPS launches, after warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(REPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def phase_device(torch):
@@ -84,14 +91,66 @@ def phase_device(torch):
 
 
 def phase_build():
+    """The port's library and the first designs' library, their two
+    ``nvcc`` calls started together; returns the first designs' library."""
     from crowdnav_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    build.library()
+    with ThreadPoolExecutor(1) as pool:
+        first = pool.submit(build.compile_library, FIRST_DESIGN)
+        build.library()
+        first_path, first_s = first.result()
+    first_lib = build.load(first_path, FIRST_DESIGN_SIGNATURES)
     emit({"phase": "build", "nvcc_s": build.build_seconds,
+          "first_design_nvcc_s": first_s,
           "load_s": round(time.perf_counter() - t0, 3),
-          "sources": [str(s.relative_to(s.parents[3]))
-                      for s in build.sources()],
+          "sources": [os.path.relpath(s, ROOT) for s in build.sources()],
+          "first_design_sources": [os.path.relpath(s, ROOT) for s in
+                                   build.sources(FIRST_DESIGN)],
           "flags": build.NVCC_FLAGS})
+    return first_lib
+
+
+def _stream(torch, t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def first_design_raycast(torch, lib, pos, cy, sy, ca, sa, peds, half, r2,
+                         min_range, max_range):
+    """The raycast's first design (one block of 128 threads per env)."""
+    from crowdnav_tpu_torch.kernels import build
+    ptrs, out = build.raycast_buffers(pos, cy, sy, ca, sa, peds)
+    n, b = out.shape
+    code = lib.crowdnav_raycast(*ptrs, out.data_ptr(), n, b, peds.shape[1],
+                                half, r2, min_range, max_range,
+                                _stream(torch, pos))
+    if code:
+        raise RuntimeError(f"first-design raycast: CUDA error {code}")
+    return out
+
+
+def first_design_track(torch, lib, cfg, *tensors):
+    """The tracker kernel's first design (one warp per env, no shared
+    memory)."""
+    from crowdnav_tpu_torch.kernels import build
+    ptrs, outs, consts = build.track_cp_topk_buffers(cfg, *tensors)
+    n, S = tensors[0].shape
+    code = lib.crowdnav_track_cp_topk(
+        *ptrs, *(o.data_ptr() for o in outs), n, S, tensors[4].shape[1],
+        cfg.k_obstacles, *consts, _stream(torch, tensors[0]))
+    if code:
+        raise RuntimeError(f"first-design tracker: CUDA error {code}")
+    return outs[:7], outs[7:]
+
+
+def _timings(kernel, first, plain, args, plain_args, nbytes):
+    """Device ms of the kernel and its first design on copies of ``args``,
+    and of the plain version on ``plain_args``."""
+    from crowdnav_tpu_torch.kernels import timing
+    sets = timing.clone_args(args, timing.copies_for(nbytes))
+    return {"device_ms": timing.device_ms(kernel, sets, reps=100),
+            "first_design_device_ms": timing.device_ms(first, sets,
+                                                       reps=100),
+            "plain_ms": timing.stream_ms(plain, plain_args)}
 
 
 def _max_abs(a, b, torch):
@@ -102,8 +161,9 @@ def _max_abs(a, b, torch):
     return float(torch.where(both_inf, 0.0, d).max()) if d.numel() else 0.0
 
 
-def phase_raycast(torch, dev):
+def phase_raycast(torch, dev, first_lib):
     from crowdnav_tpu_torch.envs.config import make_config
+    from crowdnav_tpu_torch.kernels import build, roofline
     from crowdnav_tpu_torch.ops import lidar
     from crowdnav_tpu_torch.utils import numerics as nm
     cfg = make_config("crowd_dense", "crowd")
@@ -113,55 +173,59 @@ def phase_raycast(torch, dev):
     def u(shape, lo, hi):
         return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
 
-    cases = {"n16384_p14": (u((N_BIG, 2), -1.3, 1.3),
-                            u((N_BIG,), -math.pi, math.pi),
-                            u((N_BIG, 14, 2), -1.35, 1.35)),
+    def population(n, p):
+        return (u((n, 2), -1.3, 1.3), u((n,), -math.pi, math.pi),
+                u((n, p, 2), -1.35, 1.35))
+
+    cases = {"n16384_p14": population(N_BIG, 14),
              # the n_peds=0 placeholder pedestrian, far out of range
              "n16384_p0": (u((N_BIG, 2), -1.3, 1.3),
                            u((N_BIG,), -math.pi, math.pi),
                            torch.full((N_BIG, 1, 2), 1e3, device=dev)),
-             "n1000_p14": (u((N_ODD, 2), -1.3, 1.3),
-                           u((N_ODD,), -math.pi, math.pi),
-                           u((N_ODD, 14, 2), -1.35, 1.35))}
+             "n1000_p14": population(N_ODD, 14),
+             "n1024_p14": population(EVAL_ENVS, 14)}
     consts = dict(ped_radius=cfg.ped_radius, room_half=h,
                   max_range=cfg.max_scan_range,
                   min_range=cfg.lidar_min_range, n_scans=cfg.n_scans)
+    ca, sa = lidar.beam_tables(cfg.n_scans, dev)
+
+    def plain_args(pos, yaw, peds):
+        return (pos, torch.cos(yaw), torch.sin(yaw), ca, sa, peds,
+                nm.f32(h), nm.f32(cfg.ped_radius ** 2),
+                nm.f32(cfg.lidar_min_range), nm.f32(cfg.max_scan_range))
+
     result = {}
     for name, (pos, yaw, peds) in cases.items():
         got = lidar.scan_batch(pos, yaw, peds, **consts)
-        ca, sa = lidar.beam_tables(cfg.n_scans, dev)
-        plain_args = (pos, torch.cos(yaw), torch.sin(yaw), ca, sa, peds,
-                      nm.f32(h), nm.f32(cfg.ped_radius ** 2),
-                      nm.f32(cfg.lidar_min_range),
-                      nm.f32(cfg.max_scan_range))
-        ref = lidar.raycast_plain(*plain_args)
+        ref = lidar.raycast_plain(*plain_args(pos, yaw, peds))
         torch.cuda.synchronize()
         raw = _max_abs(got, ref, torch)
         rounded_equal = bool(torch.equal(nm.round3(got), nm.round3(ref)))
         if not rounded_equal or raw > 1e-6:
             raise AssertionError(f"raycast {name}: rounded equal "
                                  f"{rounded_equal}, max |diff| {raw}")
-        result[name] = {"max_abs_diff": raw, "rounded_bit_equal": True}
-    pos, yaw, peds = cases["n16384_p14"]
-    ca, sa = lidar.beam_tables(cfg.n_scans, dev)
-    cy, sy = torch.cos(yaw), torch.sin(yaw)
-    args = (pos, cy, sy, ca, sa, peds, nm.f32(h),
-            nm.f32(cfg.ped_radius ** 2), nm.f32(cfg.lidar_min_range),
-            nm.f32(cfg.max_scan_range))
-    from crowdnav_tpu_torch.kernels import build
-    plain_ms = time_ms(lambda: lidar.raycast_plain(*args), torch)
-    ms = time_ms(lambda: build.raycast(*args), torch)
-    n, b, p = N_BIG, cfg.n_scans, 14
-    bytes_moved = 4 * (n * 2 + 2 * n + 2 * b + n * p * 2 + n * b)
-    ops = n * b * (15 + 17 * p)
-    bound = max(bytes_moved / H100_BYTES_PER_S, ops / H100_F32_FLOPS) * 1e3
-    emit({"phase": "raycast", "cases": result, "ms": ms,
-          "plain_ms": plain_ms, "bound_ms": bound,
-          "bytes": bytes_moved, "ops": ops})
+        result[name] = {"max_abs_diff": raw, "rounded_bit_equal": True,
+                        "bit_equal": bool(torch.equal(got, ref))}
+
+    def first(*a):
+        return first_design_raycast(torch, first_lib, *a)
+
+    shapes = {}
+    for n, case in ((EVAL_ENVS, "n1024_p14"), (N_BIG, "n16384_p14")):
+        args = plain_args(*cases[case])
+        if not torch.equal(build.raycast(*args), first(*args)):
+            raise AssertionError(f"raycast {case}: the first design differs")
+        hits = roofline.raycast_hits(*args[:6], args[7])
+        nbytes, ops = roofline.raycast_work(n, cfg.n_scans, 14, hits)
+        bound, bound_by = roofline.bound_ms(nbytes, ops)
+        shapes[n] = dict(_timings(build.raycast, first, lidar.raycast_plain,
+                                  args, args, nbytes),
+                         bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                         ops=ops, hits=hits)
+    emit({"phase": "raycast", "cases": result, "timing": TIMING,
+          "shapes": shapes})
     return {"max_abs": max(r["max_abs_diff"] for r in result.values()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": ("bytes" if bytes_moved / H100_BYTES_PER_S
-                         >= ops / H100_F32_FLOPS else "operations")}
+            "shapes": shapes}
 
 
 def _random_population(torch, cfg, n, dev, seed):
@@ -247,22 +311,34 @@ def _flatten(out):
             trk.speed, trk.vel, top_cp, top_pv, cp_max, ego_cp]
 
 
-def phase_track(torch, dev):
+def phase_track(torch, dev, first_lib):
     from crowdnav_tpu_torch.envs.config import make_config
+    from crowdnav_tpu_torch.kernels import build, roofline
     from crowdnav_tpu_torch.ops import risk
     from crowdnav_tpu_torch.ops.risk_kernel import track_cp_topk_batch
     cfg = make_config("crowd_dense", "crowd")
     cases = {f"random_n{N_BIG}_seed{s}": _random_population(
         torch, cfg, N_BIG, dev, s) for s in range(3)}
     cases[f"random_n{N_ODD}"] = _random_population(torch, cfg, N_ODD, dev, 9)
+    cases[f"random_n{EVAL_ENVS}"] = _random_population(torch, cfg, EVAL_ENVS,
+                                                       dev, 11)
     cases["edges"] = _edge_population(torch, cfg, dev)
+    cfgs = dict.fromkeys(cases, cfg)
+    # the kernel's other instantiations: K = 1 (world "realworld") and
+    # sizes it takes at run time
+    for name, other in (("k1", dataclasses.replace(cfg, k_obstacles=1)),
+                        ("t20_k5", dataclasses.replace(
+                            cfg, max_tracks=20, k_obstacles=5))):
+        cases[f"random_n{N_ODD}_{name}"] = _random_population(
+            torch, other, N_ODD, dev, 13)
+        cfgs[f"random_n{N_ODD}_{name}"] = other
     names = ["valid", "pos", "prev_pos", "has_prev", "dist", "speed", "vel",
              "top_cp", "top_pose_vel", "cp_max", "ego_cp"]
     result = {}
     worst = 0.0
     for case, args in cases.items():
-        got = _flatten(track_cp_topk_batch(cfg, *args))
-        ref = _flatten(risk.track_cp_topk(cfg, *args))
+        got = _flatten(track_cp_topk_batch(cfgs[case], *args))
+        ref = _flatten(risk.track_cp_topk(cfgs[case], *args))
         torch.cuda.synchronize()
         diffs = {}
         for name, g, r in zip(names, got, ref):
@@ -281,28 +357,38 @@ def phase_track(torch, dev):
         result[case] = {"max_abs_diff": max(diffs.values()),
                         "bit_equal": all(torch.equal(g, r)
                                          for g, r in zip(got, ref))}
-    args = cases[f"random_n{N_BIG}_seed0"]
-    plain_ms = time_ms(lambda: risk.track_cp_topk(cfg, *args), torch)
-    from crowdnav_tpu_torch.kernels import build
-    segs, tracks, pos, prev, cc = args
-    kargs = (cfg, segs.confirmed, segs.is_obstacle, segs.center_pos,
-             segs.center_dist, tracks.valid, tracks.pos, tracks.prev_pos,
-             tracks.dist, tracks.speed, tracks.vel, pos, prev, cc)
-    ms = time_ms(lambda: build.track_cp_topk(*kargs), torch)
-    n, S, T, K = N_BIG, cfg.max_segments, cfg.max_tracks, cfg.k_obstacles
-    bytes_in = n * (S * (1 + 1 + 8 + 4) + T * (1 + 8 + 8 + 4 + 4 + 8)
-                    + 8 + 8 + 1)
-    bytes_out = n * (T * (1 + 8 + 8 + 1 + 4 + 4 + 8) + K * (4 + 16) + 8)
-    ops = n * (T * S * 12 + T * 60 + T * T * 3)
-    t_bytes = (bytes_in + bytes_out) / H100_BYTES_PER_S
-    t_ops = ops / H100_F32_FLOPS
-    bound = max(t_bytes, t_ops) * 1e3
-    emit({"phase": "track_cp_topk", "cases": result, "ms": ms,
-          "plain_ms": plain_ms, "bound_ms": bound,
-          "bytes": bytes_in + bytes_out, "ops": ops})
-    return {"max_abs": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    def kernel_args(segs, tracks, pos, prev, cc):
+        return (cfg, segs.confirmed, segs.is_obstacle, segs.center_pos,
+                segs.center_dist, tracks.valid, tracks.pos, tracks.prev_pos,
+                tracks.dist, tracks.speed, tracks.vel, pos, prev, cc)
+
+    def plain(*a):
+        return risk.track_cp_topk(cfg, *a)
+
+    def first(*a):
+        return first_design_track(torch, first_lib, *a)
+
+    S, T, K = cfg.max_segments, cfg.max_tracks, cfg.k_obstacles
+    shapes = {}
+    for n, case in ((EVAL_ENVS, f"random_n{EVAL_ENVS}"),
+                    (N_BIG, f"random_n{N_BIG}_seed0")):
+        args = kernel_args(*cases[case])
+        got = build.track_cp_topk(*args)
+        old = first(*args)
+        if not all(torch.equal(a, b) for a, b in zip(
+                [*got[0], *got[1]], [*old[0], *old[1]])):
+            raise AssertionError(f"track_cp_topk {case}: the first design "
+                                 f"differs")
+        nbytes, ops = roofline.track_cp_topk_work(n, S, T, K)
+        bound, bound_by = roofline.bound_ms(nbytes, ops)
+        shapes[n] = dict(_timings(build.track_cp_topk, first, plain, args,
+                                  cases[case], nbytes),
+                         bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                         ops=ops)
+    emit({"phase": "track_cp_topk", "cases": result, "timing": TIMING,
+          "shapes": shapes})
+    return {"max_abs": worst, "shapes": shapes}
 
 
 def phase_evaluate(torch):
@@ -360,9 +446,9 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = phase_device(torch)
-    phase_build()
-    ray = phase_raycast(torch, dev)
-    trk = phase_track(torch, dev)
+    first_lib = phase_build()
+    ray = phase_raycast(torch, dev, first_lib)
+    trk = phase_track(torch, dev, first_lib)
     launches = phase_evaluate(torch)
     kernels = []
     for name, stats, src, tpu, fn in (
@@ -373,15 +459,28 @@ def main():
              "crowdnav_tpu_torch/kernels/csrc/track_cp_topk.cu",
              "crowdnav_tpu/ops/risk_pallas.py:61",
              "_kernel, launched by track_cp_topk_batch")):
-        kernels.append({
+        big = stats["shapes"][N_BIG]
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "tpu_kernel": f"{tpu} {fn}", "launches": launches[name],
             "launches_per_step": launches[name] / EVAL_STEPS,
             "max_abs_err": stats["max_abs"],
-            "max_abs_diff": stats["max_abs"], "ms": stats["ms"],
-            "kernel_ms": stats["ms"], "plain_ms": stats["plain_ms"],
-            "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
-            "library_ms": None, "card": smi})
+            "max_abs_diff": stats["max_abs"], "ms": big["device_ms"],
+            "kernel_ms": big["device_ms"], "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+            "library_ms": None,
+            "library_ms_reason": "no single PyTorch call computes it",
+            "card": smi, "timing": TIMING}
+        for n in SHAPES:
+            sh = stats["shapes"][n]
+            entry.update({
+                f"device_ms_n{n}": sh["device_ms"],
+                f"first_design_device_ms_n{n}": sh["first_design_device_ms"],
+                f"plain_ms_n{n}": sh["plain_ms"],
+                f"bound_ms_n{n}": sh["bound_ms"],
+                f"bound_by_n{n}": sh["bound_by"],
+                f"bound_share_n{n}": sh["bound_ms"] / sh["device_ms"]})
+        kernels.append(entry)
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

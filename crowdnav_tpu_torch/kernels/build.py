@@ -1,8 +1,9 @@
 """Build and bind the CUDA kernels of ``kernels/csrc``.
 
 All ``.cu`` files are compiled by one ``nvcc`` call into one shared library
-with a plain C interface (no PyTorch headers), loaded with ``ctypes``. The
-build runs at first use into ``kernels/build/``; the library's file name
+with a plain C interface (no PyTorch headers), loaded with ``ctypes``; the
+launch geometry (grid, block, shared memory) comes from ``kernels/launch.py``.
+The build runs at first use into ``kernels/build/``; the library's file name
 carries a hash of the sources and flags, so a stale build is never loaded.
 There are no lock files: the library is written under a temporary name and
 renamed into place.
@@ -24,6 +25,7 @@ from pathlib import Path
 
 import torch
 
+from crowdnav_tpu_torch.kernels import launch
 from crowdnav_tpu_torch.utils import numerics as nm
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -38,13 +40,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "crowdnav_raycast": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_P],
-    "crowdnav_track_cp_topk": [_P] * 24 + [_I] * 4 + [_F] * 8 + [_P],
+    "crowdnav_raycast": [_P] * 7 + [_I] * 7 + [_F] * 4 + [_P],
+    "crowdnav_track_cp_topk": [_P] + [_I] * 6 + [_F] * 8 + [_P],
 }
 
 
-def sources():
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC):
+    return sorted(Path(csrc).glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -56,24 +58,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin)")
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcrowdnav_kernels_{h.hexdigest()[:16]}.so"
 
 
-def compile_library() -> Path:
-    """Run the one ``nvcc`` call if the library for these sources is not
-    built yet; return its path."""
-    global build_seconds
-    path = library_path()
+def compile_library(csrc: Path = CSRC) -> tuple[Path, float | None]:
+    """Run one ``nvcc`` call over the ``.cu`` files of ``csrc`` if their
+    library is not built yet; return its path and the call's seconds (None
+    if it was built already)."""
+    path = library_path(csrc)
     if path.exists():
-        return path
+        return path, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources(csrc))]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True,
                          timeout=BUILD_TIMEOUT_S)
@@ -81,18 +83,23 @@ def compile_library() -> Path:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                            f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, path)
-    build_seconds = time.perf_counter() - t0
-    return path
+    return path, time.perf_counter() - t0
 
 
-@functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(compile_library()))
-    for name, argtypes in _SIGNATURES.items():
+def load(path: Path, signatures: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    global build_seconds
+    path, build_seconds = compile_library()
+    return load(path, _SIGNATURES)
 
 
 def _check(code: int, name: str):
@@ -110,6 +117,8 @@ def _cuda_input(name, t, dtype, shape):
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 8:   # the kernels load float pairs
+        raise ValueError(f"{name}: expected an 8-byte aligned tensor")
     return t.data_ptr()
 
 
@@ -117,10 +126,8 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def raycast(pos, cos_yaw, sin_yaw, cos_beam, sin_beam, peds, half, r2,
-            min_range, max_range):
-    """Launch the raycast kernel; arguments as ``ops.lidar.raycast_plain``.
-    Returns (N, B) float32 ranges."""
+def raycast_buffers(pos, cos_yaw, sin_yaw, cos_beam, sin_beam, peds):
+    """Checked input addresses and the (N, B) float32 output."""
     f32 = torch.float32
     n, b, p = pos.shape[0], cos_beam.shape[0], peds.shape[1]
     ptrs = [_cuda_input("pos", pos, f32, (n, 2)),
@@ -129,19 +136,33 @@ def raycast(pos, cos_yaw, sin_yaw, cos_beam, sin_beam, peds, half, r2,
             _cuda_input("cos_beam", cos_beam, f32, (b,)),
             _cuda_input("sin_beam", sin_beam, f32, (b,)),
             _cuda_input("peds", peds, f32, (n, p, 2))]
-    out = torch.empty((n, b), dtype=f32, device=pos.device)
+    return ptrs, torch.empty((n, b), dtype=f32, device=pos.device)
+
+
+def raycast(pos, cos_yaw, sin_yaw, cos_beam, sin_beam, peds, half, r2,
+            min_range, max_range, threads: int | None = None,
+            beams_per_thread: int | None = None):
+    """Launch the raycast kernel; arguments as ``ops.lidar.raycast_plain``.
+    Returns (N, B) float32 ranges."""
+    ptrs, out = raycast_buffers(pos, cos_yaw, sin_yaw, cos_beam, sin_beam,
+                                peds)
+    n, b = out.shape
+    p = peds.shape[1]
+    geo = launch.raycast_launch(n, b, p, threads, beams_per_thread)
     code = library().crowdnav_raycast(
-        *ptrs, out.data_ptr(), n, b, p, half, r2, min_range, max_range,
+        *ptrs, out.data_ptr(), n, b, p, geo.grid, geo.threads,
+        geo.beams_per_thread, geo.smem_bytes, half, r2, min_range, max_range,
         _stream(pos.device))
     _check(code, "crowdnav_raycast")
     return out
 
 
-def track_cp_topk(cfg, seg_conf, seg_obs, seg_pos, seg_dist, t_valid, t_pos,
-                  t_prev, t_dist, t_speed, t_vel, r_pos, r_prev, compute_cp):
-    """Launch the tracker -> CP -> top-K kernel. Returns the new track
-    fields ``(valid, pos, prev_pos, has_prev, dist, speed, vel)`` and
-    ``(top_cp, top_pose_vel, cp_max, ego_cp)``."""
+def track_cp_topk_buffers(cfg, seg_conf, seg_obs, seg_pos, seg_dist,
+                          t_valid, t_pos, t_prev, t_dist, t_speed, t_vel,
+                          r_pos, r_prev, compute_cp):
+    """Checked input addresses, the 11 outputs (new track fields, then
+    top_cp, top_pose_vel, cp_max, ego_cp) and the kernel's float32
+    constants."""
     f32, b8 = torch.float32, torch.bool
     n, S = seg_conf.shape
     T, K = t_valid.shape[1], cfg.k_obstacles
@@ -180,8 +201,24 @@ def track_cp_topk(cfg, seg_conf, seg_obs, seg_pos, seg_dist, t_valid, t_pos,
               nm.f32(cfg.max_scan_range),
               nm.recip_f32(max(nm.f32(cfg.max_scan_range
                                       - cfg.min_scan_range), nm.f32(1e-9))))
+    return ptrs, outs, consts
+
+
+def track_cp_topk(cfg, seg_conf, seg_obs, seg_pos, seg_dist, t_valid, t_pos,
+                  t_prev, t_dist, t_speed, t_vel, r_pos, r_prev, compute_cp,
+                  envs_per_block: int | None = None):
+    """Launch the tracker -> CP -> top-K kernel. Returns the new track
+    fields ``(valid, pos, prev_pos, has_prev, dist, speed, vel)`` and
+    ``(top_cp, top_pose_vel, cp_max, ego_cp)``."""
+    ptrs, outs, consts = track_cp_topk_buffers(
+        cfg, seg_conf, seg_obs, seg_pos, seg_dist, t_valid, t_pos, t_prev,
+        t_dist, t_speed, t_vel, r_pos, r_prev, compute_cp)
+    n, S = seg_conf.shape
+    T, K = t_valid.shape[1], cfg.k_obstacles
+    geo = launch.track_cp_topk_launch(n, envs_per_block)
+    addrs = (ctypes.c_void_p * 24)(*ptrs, *(o.data_ptr() for o in outs))
     code = library().crowdnav_track_cp_topk(
-        *ptrs, *(o.data_ptr() for o in outs), n, S, T, K, *consts,
-        _stream(dev))
+        addrs, n, S, T, K, geo.grid, geo.envs_per_block, *consts,
+        _stream(seg_conf.device))
     _check(code, "crowdnav_track_cp_topk")
     return outs[:7], outs[7:]

@@ -17,25 +17,42 @@
 //   5. the stable top-K by CP (ties to the lower slot, as lax.top_k),
 //      padded with the robot pose; cp_max and ego_cp.
 //
-// Design: one warp per env, no shared memory. S <= 32, so in phase 1 the
-// lane is the segment: each of the T tracks is broadcast to the warp and
-// its argmax is a shuffle reduction with an exact lowest-index tie-break.
-// Then the lane is the track (T <= 32): claimed segments are an OR
-// reduction of bit masks, free-slot and obstacle ranks are __ballot_sync /
-// __popc prefix counts, the values of matched and inserted segments come
-// over __shfl_sync, and the top-K rank of a track is the number of tracks
-// that beat it. Inputs and outputs are the natural (N,S), (N,T), (N,K)
-// row-major tensors; bool tensors are one byte per element.
+// Bound: bytes. At 16,384 envs (S=32, T=24, K=8) the kernel reads 20.6 MB
+// and writes 16.1 MB, 11 us at 3.35 TB/s; its arithmetic (T x S IOUs and
+// T^2 rank compares per env, ~0.2 GFLOP) is a quarter of that. What the
+// card actually spends, though, is instruction slots: one env's work is a
+// few hundred warp instructions, and a quarter of the lanes (T = 24 of 32)
+// idle in every one. So the design cuts instructions.
+//
+// Design: one warp per env, lane = segment for the segment rows and lane =
+// track for everything else, E envs (warps) to a block (E from the
+// wrapper, kernels/launch.py). Each lane loads its own elements of every
+// field straight into registers: a warp's loads of one field are one
+// contiguous run of 24 to 256 bytes, and the 13 loads are independent, so
+// they are all in flight at once; the outputs go back the same way. (A
+// version that staged each field's block range in shared memory, with
+// 16-byte cp.async copies and then with one TMA bulk copy per field,
+// measured slower: staging alone took longer than this whole kernel.)
+// Segment positions and distances go to a per-warp row of shared memory,
+// where every lane reads them by broadcast. Phase 1 walks the confirmed
+// segments (a warp-uniform bit mask) and only marks which boxes overlap
+// track `lane`'s: a box that misses scores exactly 0 (0 / uni), so the
+// first confirmed segment holds the argmax at 0 until an overlapping one
+// scores more, and the IOU division runs for the overlapping pairs alone,
+// in a second, per-lane walk in index order. Claims, free-slot and
+// obstacle ranks are __ballot_sync / __popc prefix counts; the r-th
+// unclaimed obstacle reaches the r-th free slot through a per-warp table
+// indexed by rank. The top-K rank of a track is the number of tracks with
+// a higher score, read from a score row in shared memory, plus the
+// lower-slot tracks with an equal score, from one __match_any_sync. The
+// kernel is compiled for the repo's (S, T, K) = (32, 24, 8) and
+// (32, 24, 1), so that loop bounds and row sizes fold, and for sizes
+// taken at run time.
 //
 // Numerics (crowdnav_tpu_torch/utils/numerics.py): built with -fmad=false;
 // fmaf only where the reference's compiler fuses; round(x, 3) is
 // rintf(x * 1000) * 0.001f; divisions by the constant dt are products with
 // inv_dt = f32(1/f32(dt)); IEEE division and sqrtf elsewhere.
-//
-// Bound: at 16,384 envs the kernel reads about 26.5 MB (segments, tracks,
-// robot poses) and writes about 18.5 MB (tracks, top-K, two scalars), so
-// about 13 us of memory time at 3.35 TB/s; its arithmetic (T x S IOUs, T^2
-// rank compares per env, ~25 M flops in all) is far below that.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -43,6 +60,9 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kIn = 13;
+constexpr int kOut = 11;
+constexpr int kMaxWarps = 16;  // blocks of at most 512 threads
 
 struct Consts {
   float side;        // f32(2 * ped_radius)
@@ -55,94 +75,118 @@ struct Consts {
   float inv_range;   // f32(1 / max(f32(max - min), f32(1e-9)))
 };
 
-__global__ void track_cp_topk_kernel(
-    const uint8_t* __restrict__ seg_conf, const uint8_t* __restrict__ seg_obs,
-    const float* __restrict__ seg_pos, const float* __restrict__ seg_dist,
-    const uint8_t* __restrict__ t_valid, const float* __restrict__ t_pos,
-    const float* __restrict__ t_prev, const float* __restrict__ t_dist,
-    const float* __restrict__ t_speed, const float* __restrict__ t_vel,
-    const float* __restrict__ r_pos, const float* __restrict__ r_prev,
-    const uint8_t* __restrict__ compute_cp, uint8_t* __restrict__ o_valid,
-    float* __restrict__ o_pos, float* __restrict__ o_prev,
-    uint8_t* __restrict__ o_has_prev, float* __restrict__ o_dist,
-    float* __restrict__ o_speed, float* __restrict__ o_vel,
-    float* __restrict__ top_cp, float* __restrict__ top_pv,
-    float* __restrict__ cp_max, float* __restrict__ ego_cp, int n_envs,
-    int S, int T, int K, Consts c) {
+// Global tensors in the order of track_cp_topk_fields (kernels/roofline.py):
+// confirmed, is_obstacle, center_pos, center_dist, then the track fields
+// valid, pos, prev_pos, dist, speed, vel, then robot_pos, robot_prev_pos,
+// compute_cp; out: the new track fields valid, pos, prev_pos, has_prev,
+// dist, speed, vel, then top_cp, top_pose_vel, cp_max, ego_cp.
+struct Ptrs {
+  const uint8_t* in[kIn];
+  uint8_t* out[kOut];
+};
+
+template <typename V>
+__device__ __forceinline__ V load(const uint8_t* base, size_t i) {
+  return reinterpret_cast<const V*>(base)[i];
+}
+
+template <typename V>
+__device__ __forceinline__ void store(uint8_t* base, size_t i, V v) {
+  reinterpret_cast<V*>(base)[i] = v;
+}
+
+// kS, kT, kK: the sizes fixed at compile time, or 0 to take them at run
+// time.
+template <int kS, int kT, int kK>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+    track_cp_topk_kernel(Ptrs g, int n_envs, int S_rt, int T_rt, int K_rt,
+                         Consts c) {
+  const int S = kS ? kS : S_rt;
+  const int T = kT ? kT : T_rt;
+  const int K = kK ? kK : K_rt;
+  __shared__ float2 pos_s[kMaxWarps][32];
+  __shared__ float dist_s[kMaxWarps][32];
+  __shared__ float score_s[kMaxWarps][32];
+  __shared__ int seg_of_rank_s[kMaxWarps][32];
+  const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int env = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (env >= n_envs) return;  // whole warps leave together
+  const int env = blockIdx.x * (blockDim.x >> 5) + w;
+  if (env >= n_envs) return;  // whole warps leave; no block barrier follows
   const float inf = __int_as_float(0x7f800000);
 
-  // ---- phase 1: lane = segment ----
-  const size_t sb = (size_t)env * S;
-  const bool has_seg = lane < S;
-  const bool conf = has_seg && seg_conf[sb + lane];
-  const bool is_obs = has_seg && seg_obs[sb + lane];
-  const float cx = has_seg ? seg_pos[2 * (sb + lane)] : 0.f;
-  const float cy = has_seg ? seg_pos[2 * (sb + lane) + 1] : 0.f;
-  const float cd = has_seg ? seg_dist[sb + lane] : 0.f;
-
-  const size_t tb = (size_t)env * T;
-  int my_best = 0;          // argmax segment of track `lane`
-  float my_best_iou = -1.f;
-  for (int t = 0; t < T; ++t) {
-    const float px = t_pos[2 * (tb + t)], py = t_pos[2 * (tb + t) + 1];
-    float v;
-    if (has_seg) {
-      const float ddx = fabsf(px - cx), ddy = fabsf(py - cy);
-      const float inter = fmaxf(c.side - ddx, 0.f) * fmaxf(c.side - ddy, 0.f);
-      const float uni = c.two_side2 - inter;
-      const float iou = rintf((inter / uni) * 1000.f) * 0.001f;
-      v = conf ? iou : -1.f;
-    } else {
-      v = -inf;
-    }
-    int j = lane;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, v, off);
-      const int oj = __shfl_xor_sync(kFull, j, off);
-      if (ov > v || (ov == v && oj < j)) {
-        v = ov;
-        j = oj;
-      }
-    }
-    if (lane == t) {
-      my_best = j;
-      my_best_iou = v;
-    }
+  // ---- loads: lane = segment, then lane = track ----
+  const bool has_seg = lane < S, has_trk = lane < T;
+  const size_t si = (size_t)env * S + lane, ti = (size_t)env * T + lane;
+  bool conf = false, obs = false, valid = false;
+  float2 cs = make_float2(0.f, 0.f), tp = cs, t_prev = cs, t_vel = cs;
+  float cd = 0.f, t_dist = 0.f, t_speed = 0.f;
+  if (has_seg) {
+    conf = g.in[0][si];
+    obs = g.in[1][si];
+    cs = load<float2>(g.in[2], si);
+    cd = load<float>(g.in[3], si);
   }
-
-  // ---- phase 2: lane = track ----
-  const bool has_trk = lane < T;
-  const size_t ti = tb + (has_trk ? lane : 0);
-  const bool valid = has_trk && t_valid[ti];
-  const float px = has_trk ? t_pos[2 * ti] : 0.f;
-  const float py = has_trk ? t_pos[2 * ti + 1] : 0.f;
-  const bool matched = valid && my_best_iou > 0.f;
-  const float nx = __shfl_sync(kFull, cx, my_best);
-  const float ny = __shfl_sync(kFull, cy, my_best);
-  const float nd = __shfl_sync(kFull, cd, my_best);
-  const float delx = px - nx, dely = py - ny;  // prev - curr
-  const float speed = sqrtf(fmaf(dely, dely, delx * delx)) * c.inv_dt;
-
-  float f_px = px, f_py = py, f_prx = 0.f, f_pry = 0.f, f_dist = 0.f;
-  float f_speed = 0.f, f_vx = 0.f, f_vy = 0.f;
   if (has_trk) {
-    f_prx = t_prev[2 * ti];
-    f_pry = t_prev[2 * ti + 1];
-    f_dist = t_dist[ti];
-    f_speed = t_speed[ti];
-    f_vx = t_vel[2 * ti];
-    f_vy = t_vel[2 * ti + 1];
+    valid = g.in[4][ti];
+    tp = load<float2>(g.in[5], ti);
+    t_prev = load<float2>(g.in[6], ti);
+    t_dist = load<float>(g.in[7], ti);
+    t_speed = load<float>(g.in[8], ti);
+    t_vel = load<float2>(g.in[9], ti);
   }
+  const float2 rp = load<float2>(g.in[10], env);
+  const float2 rq = load<float2>(g.in[11], env);
+  const bool compute_cp = g.in[12][env];
+  float2* s_pos = pos_s[w];
+  float* s_dist = dist_s[w];
+  s_pos[lane] = cs;
+  s_dist[lane] = cd;
+  __syncwarp();
+
+  // ---- phase 1: first-index argmax IOU of track `lane` ----
+  const unsigned conf_mask = __ballot_sync(kFull, conf);
+  unsigned overlap = 0u;  // confirmed segments whose box overlaps
+  if (has_trk) {
+    for (unsigned m = conf_mask; m != 0u; m &= m - 1u) {
+      const int s = __ffs(m) - 1;
+      const float2 q = s_pos[s];
+      const float ddx = fabsf(tp.x - q.x), ddy = fabsf(tp.y - q.y);
+      const float inter =
+          fmaxf(c.side - ddx, 0.f) * fmaxf(c.side - ddy, 0.f);
+      if (inter > 0.f) overlap |= 1u << s;
+    }
+  }
+  // every IOU -1 (no confirmed segment): segment 0; else the first
+  // confirmed segment at 0 until an overlapping one scores more
+  int my_best = conf_mask != 0u ? __ffs(conf_mask) - 1 : 0;
+  float my_best_iou = conf_mask != 0u ? 0.f : -1.f;
+  for (unsigned m = overlap; m != 0u; m &= m - 1u) {
+    const int s = __ffs(m) - 1;
+    const float2 q = s_pos[s];
+    const float ddx = fabsf(tp.x - q.x), ddy = fabsf(tp.y - q.y);
+    const float inter = fmaxf(c.side - ddx, 0.f) * fmaxf(c.side - ddy, 0.f);
+    const float uni = c.two_side2 - inter;
+    const float iou = rintf((inter / uni) * 1000.f) * 0.001f;
+    if (iou > my_best_iou) {
+      my_best_iou = iou;
+      my_best = s;
+    }
+  }
+
+  // ---- phase 2: update of track `lane` ----
+  const float px = tp.x, py = tp.y;
+  const bool matched = valid && my_best_iou > 0.f;
+  const float2 nb = s_pos[my_best];
+  const float delx = px - nb.x, dely = py - nb.y;  // prev - curr
+  const float speed = sqrtf(fmaf(dely, dely, delx * delx)) * c.inv_dt;
+  float f_px = px, f_py = py, f_prx = t_prev.x, f_pry = t_prev.y;
+  float f_dist = t_dist, f_speed = t_speed, f_vx = t_vel.x, f_vy = t_vel.y;
   if (matched) {
     f_prx = px;
     f_pry = py;
-    f_px = nx;
-    f_py = ny;
-    f_dist = nd;
+    f_px = nb.x;
+    f_py = nb.y;
+    f_dist = s_dist[my_best];
     f_speed = speed;
     f_vx = delx * c.inv_dt;
     f_vy = dely * c.inv_dt;
@@ -151,27 +195,23 @@ __global__ void track_cp_topk_kernel(
   // insertion: the r-th free slot takes the r-th unclaimed obstacle
   const unsigned claimed =
       __reduce_or_sync(kFull, matched ? (1u << my_best) : 0u);
-  const unsigned insert_mask =
-      __ballot_sync(kFull, is_obs && !((claimed >> lane) & 1u));
+  const bool to_insert = obs && !((claimed >> lane) & 1u);
+  const unsigned insert_mask = __ballot_sync(kFull, to_insert);
+  const unsigned below = (1u << lane) - 1u;
+  if (to_insert) seg_of_rank_s[w][__popc(insert_mask & below)] = lane;
   const bool free_slot = has_trk && !matched;
   const unsigned free_mask = __ballot_sync(kFull, free_slot);
-  const int free_rank = __popc(free_mask & ((1u << lane) - 1u));
+  const int free_rank = __popc(free_mask & below);
   const bool inserted = free_slot && free_rank < __popc(insert_mask);
-  int src = 0;
+  __syncwarp();
   if (inserted) {
-    unsigned m = insert_mask;
-    for (int r = 0; r < free_rank; ++r) m &= m - 1u;
-    src = __ffs(m) - 1;
-  }
-  const float ix = __shfl_sync(kFull, cx, src);
-  const float iy = __shfl_sync(kFull, cy, src);
-  const float id = __shfl_sync(kFull, cd, src);
-  if (inserted) {
-    f_px = ix;
-    f_py = iy;
-    f_prx = ix;
-    f_pry = iy;
-    f_dist = id;
+    const int src = seg_of_rank_s[w][free_rank];
+    const float2 is = s_pos[src];
+    f_px = is.x;
+    f_py = is.y;
+    f_prx = is.x;
+    f_pry = is.y;
+    f_dist = s_dist[src];
     f_speed = -1.f;  // fresh-track sentinel
     f_vx = 0.f;
     f_vy = 0.f;
@@ -180,8 +220,7 @@ __global__ void track_cp_topk_kernel(
   const bool f_has_prev = matched && !inserted;
 
   // ---- phase 3: collision probability of track `lane` ----
-  const float rx = r_pos[2 * env], ry = r_pos[2 * env + 1];
-  const float prx = r_prev[2 * env], pry = r_prev[2 * env + 1];
+  const float rx = rp.x, ry = rp.y, prx = rq.x, pry = rq.y;
   const float mdx = rx - prx, mdy = ry - pry;
   const float agent_speed = sqrtf(fmaf(mdy, mdy, mdx * mdx)) * c.inv_dt;
   const float hp = f_has_prev ? 1.f : 0.f;
@@ -209,36 +248,37 @@ __global__ void track_cp_topk_kernel(
   const float ego = (f_valid && hit && !still) ? cp_ttc : 0.f;
 
   if (has_trk) {
-    o_valid[ti] = f_valid;
-    o_pos[2 * ti] = f_px;
-    o_pos[2 * ti + 1] = f_py;
-    o_prev[2 * ti] = f_prx;
-    o_prev[2 * ti + 1] = f_pry;
-    o_has_prev[ti] = f_has_prev;
-    o_dist[ti] = f_dist;
-    o_speed[ti] = f_speed;
-    o_vel[2 * ti] = f_vx;
-    o_vel[2 * ti + 1] = f_vy;
+    g.out[0][ti] = f_valid;
+    store(g.out[1], ti, make_float2(f_px, f_py));
+    store(g.out[2], ti, make_float2(f_prx, f_pry));
+    g.out[3][ti] = f_has_prev;
+    store(g.out[4], ti, f_dist);
+    store(g.out[5], ti, f_speed);
+    store(g.out[6], ti, make_float2(f_vx, f_vy));
   }
 
   // ---- phase 4: stable top-K ----
   const bool any_track = __ballot_sync(kFull, f_valid) != 0u;
-  const bool live = compute_cp[env] && any_track;
+  const bool live = compute_cp && any_track;
   const float score = f_valid ? cp : -inf;
-  int rank = 0;
-  for (int u = 0; u < T; ++u) {
-    const float su = __shfl_sync(kFull, score, u);
-    rank += (su > score || (su == score && u < lane)) ? 1 : 0;
-  }
+  float* s_score = score_s[w];
+  s_score[lane] = score;
+  __syncwarp();
+  // rank = #(u < T: s_u > s) + #(u < lane: s_u == s). The ties come from
+  // one match of the scores' bits (-0 made +0, so that bit equality is
+  // float equality; a NaN matches no lane).
+  const unsigned key = score == score ? __float_as_uint(score + 0.f)
+                                      : 0xffffffe0u | (unsigned)lane;
+  int rank = __popc(__match_any_sync(kFull, key) & below);
+  for (int u = 0; u < T; ++u) rank += s_score[u] > score ? 1 : 0;
   const bool picked = live && f_valid;
   const float my_top = picked ? cp : 0.f;
   if (has_trk && rank < K) {
     const size_t kb = (size_t)env * K + rank;
-    top_cp[kb] = my_top;
-    top_pv[4 * kb] = picked ? f_px : rx;
-    top_pv[4 * kb + 1] = picked ? f_py : ry;
-    top_pv[4 * kb + 2] = picked ? f_vx : 0.f;
-    top_pv[4 * kb + 3] = picked ? f_vy : 0.f;
+    store(g.out[7], kb, my_top);
+    store(g.out[8], kb,
+          make_float4(picked ? f_px : rx, picked ? f_py : ry,
+                      picked ? f_vx : 0.f, picked ? f_vy : 0.f));
   }
   float mx = (has_trk && rank < K) ? my_top : -inf;
   float me = has_trk ? ego : -inf;
@@ -248,34 +288,38 @@ __global__ void track_cp_topk_kernel(
     me = fmaxf(me, __shfl_xor_sync(kFull, me, off));
   }
   if (lane == 0) {
-    cp_max[env] = live ? mx : 0.f;
-    ego_cp[env] = live ? me : 0.f;
+    store(g.out[9], env, live ? mx : 0.f);
+    store(g.out[10], env, live ? me : 0.f);
   }
 }
 
 }  // namespace
 
+// ptrs: the 13 input and 11 output tensors' device addresses, in the order
+// of track_cp_topk_fields; blocks, envs_per_block: track_cp_topk_launch
+// (kernels/launch.py). Returns the launch's cudaError_t.
 extern "C" int crowdnav_track_cp_topk(
-    const uint8_t* seg_conf, const uint8_t* seg_obs, const float* seg_pos,
-    const float* seg_dist, const uint8_t* t_valid, const float* t_pos,
-    const float* t_prev, const float* t_dist, const float* t_speed,
-    const float* t_vel, const float* r_pos, const float* r_prev,
-    const uint8_t* compute_cp, uint8_t* o_valid, float* o_pos, float* o_prev,
-    uint8_t* o_has_prev, float* o_dist, float* o_speed, float* o_vel,
-    float* top_cp, float* top_pv, float* cp_max, float* ego_cp, int n_envs,
-    int S, int T, int K, float side, float two_side2, float inv_dt,
-    float bw2, float w_ttc, float w_dist, float max_range, float inv_range,
+    void* const* ptrs, int n_envs, int S, int T, int K, int blocks,
+    int envs_per_block, float side, float two_side2, float inv_dt, float bw2,
+    float w_ttc, float w_dist, float max_range, float inv_range,
     void* stream) {
   if (n_envs == 0) return 0;
+  if (envs_per_block < 1 || envs_per_block > kMaxWarps || S < 1 || S > 32 ||
+      T < 1 || T > 32 || K < 1 || K > T) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Ptrs g;
+  for (int f = 0; f < kIn; ++f) g.in[f] = static_cast<const uint8_t*>(ptrs[f]);
+  for (int f = 0; f < kOut; ++f) {
+    g.out[f] = static_cast<uint8_t*>(ptrs[kIn + f]);
+  }
   const Consts c{side, two_side2, inv_dt, bw2, w_ttc, w_dist, max_range,
                  inv_range};
-  const int warps_per_block = 4;
-  const int blocks = (n_envs + warps_per_block - 1) / warps_per_block;
-  track_cp_topk_kernel<<<blocks, 32 * warps_per_block, 0,
-                         (cudaStream_t)stream>>>(
-      seg_conf, seg_obs, seg_pos, seg_dist, t_valid, t_pos, t_prev, t_dist,
-      t_speed, t_vel, r_pos, r_prev, compute_cp, o_valid, o_pos, o_prev,
-      o_has_prev, o_dist, o_speed, o_vel, top_cp, top_pv, cp_max, ego_cp,
-      n_envs, S, T, K, c);
+  void (*kernel)(Ptrs, int, int, int, int, Consts) =
+      S == 32 && T == 24 && K == 8   ? track_cp_topk_kernel<32, 24, 8>
+      : S == 32 && T == 24 && K == 1 ? track_cp_topk_kernel<32, 24, 1>
+                                     : track_cp_topk_kernel<0, 0, 0>;
+  kernel<<<blocks, 32 * envs_per_block, 0, (cudaStream_t)stream>>>(
+      g, n_envs, S, T, K, c);
   return (int)cudaGetLastError();
 }

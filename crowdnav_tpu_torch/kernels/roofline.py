@@ -1,0 +1,89 @@
+"""The work of each kernel call, and the least time an H100 could take
+for it.
+
+``*_work`` return ``(bytes, ops)``: the bytes the function must move (each
+input read once, each output written once) and the float32 operations it
+does on these inputs (a multiply-add counts two). The bound is the larger
+of bytes over the card's memory rate and operations over its float32 peak
+outside the tensor cores (NVIDIA's H100 SXM data sheet, at 700 W).
+"""
+from __future__ import annotations
+
+import torch
+
+from crowdnav_tpu_torch.utils import numerics as nm
+
+H100_BYTES_PER_S = 3.35e12
+H100_F32_FLOPS = 67e12
+
+# raycast operations: per beam, the direction (two products, two
+# multiply-adds: 6), the walls (two differences, two divisions, the
+# minimum: 5), the two epsilon selects (2) and the range clip (2); per
+# beam and pedestrian, b = relx*dx + rely*dy (3) and b*b subtracted from
+# rel2 (2); per hit (disc >= 0), disc, its square root and b - root; per
+# env and pedestrian, relx, rely (2) and rel2 (3)
+RAYCAST_OPS_PER_BEAM = 15
+RAYCAST_OPS_PER_PAIR = 5
+RAYCAST_OPS_PER_HIT = 3
+RAYCAST_OPS_PER_ENV_PED = 5
+
+
+def bound_ms(nbytes: float, ops: float):
+    """``(ms, "bytes" or "operations")``: the least time and what sets
+    it."""
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = ops / H100_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def raycast_work(n: int, b: int, p: int, hits: int):
+    """Raycast of ``n`` envs x ``b`` beams against ``p`` pedestrians, of
+    which ``hits`` (beam, pedestrian) pairs meet the circle's line."""
+    nbytes = 4 * (2 * n + 2 * n + 2 * b + 2 * n * p + n * b)
+    ops = (n * b * (RAYCAST_OPS_PER_BEAM + RAYCAST_OPS_PER_PAIR * p)
+           + RAYCAST_OPS_PER_HIT * hits + RAYCAST_OPS_PER_ENV_PED * n * p)
+    return nbytes, ops
+
+
+def raycast_hits(pos, cy, sy, ca, sa, peds, r2) -> int:
+    """The (beam, pedestrian) pairs of these inputs whose discriminant is
+    >= 0, computed as the kernel computes it (``ops.lidar.circle_hit``);
+    arguments as ``ops.lidar.raycast_plain``."""
+    dx = nm.fma(cy[:, None], ca, sy[:, None] * sa)
+    dy = nm.fma(sy[:, None], ca, -(cy[:, None] * sa))
+    hits = 0
+    for k in range(peds.shape[1]):
+        relx = peds[:, k, 0:1] - pos[:, 0:1]
+        rely = peds[:, k, 1:2] - pos[:, 1:2]
+        bb = nm.fma(relx, dx, rely * dy)
+        disc = r2 - nm.fma(-bb, bb, nm.fma(relx, relx, rely * rely))
+        hits += int(torch.count_nonzero(disc >= 0.0))
+    return hits
+
+
+def track_cp_topk_fields(S: int, T: int, K: int):
+    """``(inputs, outputs)``: (name, bytes per env) of the tracker kernel's
+    13 input and 11 output tensors, in the order of its arguments."""
+    inputs = (("confirmed", S), ("is_obstacle", S), ("center_pos", 8 * S),
+              ("center_dist", 4 * S), ("tracks.valid", T),
+              ("tracks.pos", 8 * T), ("tracks.prev_pos", 8 * T),
+              ("tracks.dist", 4 * T), ("tracks.speed", 4 * T),
+              ("tracks.vel", 8 * T), ("robot_pos", 8),
+              ("robot_prev_pos", 8), ("compute_cp", 1))
+    outputs = (("valid", T), ("pos", 8 * T), ("prev_pos", 8 * T),
+               ("has_prev", T), ("dist", 4 * T), ("speed", 4 * T),
+               ("vel", 8 * T), ("top_cp", 4 * K), ("top_pose_vel", 16 * K),
+               ("cp_max", 4), ("ego_cp", 4))
+    return inputs, outputs
+
+
+def track_cp_topk_work(n: int, S: int, T: int, K: int):
+    """Tracker -> CP -> top-K of ``n`` envs with ``S`` segments, ``T``
+    tracks and top ``K``: per env the T x S box IOUs (12 operations each),
+    the track update and CP (60 per track) and the top-K rank (3 per pair
+    of tracks)."""
+    inputs, outputs = track_cp_topk_fields(S, T, K)
+    nbytes = n * sum(row for _, row in inputs + outputs)
+    ops = n * (T * S * 12 + T * 60 + T * T * 3)
+    return nbytes, ops
