@@ -14,16 +14,32 @@ Phases, each printing one JSON line:
 4. ``track_cp_topk``: the tracker -> CP -> top-K kernel against its plain
    version, on random populations and edge cases (also at K = 1 and at
    sizes the kernel takes at run time), then its device time;
-5. ``evaluate``: the port's evaluation driver, greedy TD3 on suite
+5. ``libm``: the C-library trig kernel (``cos``, ``sin``, ``atan2`` as the
+   host's C library computes them) against the library on the CPU at the
+   step's shapes, and its device time;
+6. ``evaluate``: the port's evaluation driver, greedy TD3 on suite
    ``train`` with the exported ``final_full`` actor, 1,024 envs x 500 steps,
    with each kernel's launch count on that run;
-6. ``kernels``: one line with each kernel's times, bounds and launches.
+7. ``train``: the training path at full width (16,384 envs, 32 updates x
+   batch 4,096, bfloat16 replay, the epsilon spectrum of the flagship
+   recipe) through the functions ``drivers/train`` calls: one warm-up and
+   two timed chunks of 64 steps, each kernel's launches, the step's time
+   split, peak memory; then the card against the CPU at 256 envs, every
+   draw made once on the CPU: env states and the replay ring bit-equal,
+   each update within the derived float32 bound
+   (``utils/error_bounds.py``);
+8. ``kernels``: one line with each kernel's times, bounds and launches.
+
+Before them, ``step_parity`` holds the env step on the card against the
+step on the CPU: 1,024 envs x 50 steps of ``crowd_dense``/``crowd`` with
+the ``final_full`` actor's greedy actions, both sides stepped from the same
+CPU state every step, every observation and state element bit-equal.
 
 Kernel times are device time alone (``kernels/timing.py``): a burst of
 wrapper calls queued behind ``torch.cuda._sleep``, over input copies that
 keep each launch's bytes out of the L2 cache, at 1,024 envs (the evaluate
 path) and 16,384 envs (the training batch of ``bench.py``). ``ms`` and
-``bound_ms`` are at 16,384 envs.
+``bound_ms`` are at 16,384 envs; ``launches`` counts the training run.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; without a CUDA device it fails at once.
@@ -48,6 +64,8 @@ EVAL_STEPS = 500
 SHAPES = (EVAL_ENVS, N_BIG)
 JAX_RECORD = (5655, 5766)   # results/r5/final_full/td3_training_test.csv
 ROOT = os.path.dirname(os.path.abspath(__file__))
+ACTOR_FILE = os.path.join(ROOT, "crowdnav_tpu_torch", "assets",
+                          "final_full_actor.npz")
 FIRST_DESIGN = os.path.join(ROOT, "scripts", "first_design_kernels")
 # C interface of the first designs: every pointer, then the sizes, the
 # float32 constants and the stream
@@ -72,6 +90,24 @@ def wilson(k, n, z=1.96):
     mid = (p + z * z / (2 * n)) / den
     half = z * math.sqrt(p * (1 - p) / n + z * z / (4 * n * n)) / den
     return [round(mid - half, 4), round(mid + half, 4)]
+
+
+def _reset_launches():
+    from crowdnav_tpu_torch.ops.lidar import scan_batch
+    from crowdnav_tpu_torch.ops.risk_kernel import track_cp_topk_batch
+    from crowdnav_tpu_torch.utils import numerics as nm
+    for fn in (scan_batch, track_cp_topk_batch, nm.sincos, nm.atan2):
+        fn.launches = 0
+
+
+def _read_launches():
+    from crowdnav_tpu_torch.ops.lidar import scan_batch
+    from crowdnav_tpu_torch.ops.risk_kernel import track_cp_topk_batch
+    from crowdnav_tpu_torch.utils import numerics as nm
+    return {"raycast": scan_batch.launches,
+            "track_cp_topk": track_cp_topk_batch.launches,
+            "libm_sincos": nm.sincos.launches,
+            "libm_atan2": nm.atan2.launches}
 
 
 def phase_device(torch):
@@ -190,7 +226,8 @@ def phase_raycast(torch, dev, first_lib):
     ca, sa = lidar.beam_tables(cfg.n_scans, dev)
 
     def plain_args(pos, yaw, peds):
-        return (pos, torch.cos(yaw), torch.sin(yaw), ca, sa, peds,
+        # the yaw terms as scan_batch computes them (the C library's trig)
+        return (pos, nm.cos(yaw), nm.sin(yaw), ca, sa, peds,
                 nm.f32(h), nm.f32(cfg.ped_radius ** 2),
                 nm.f32(cfg.lidar_min_range), nm.f32(cfg.max_scan_range))
 
@@ -393,14 +430,11 @@ def phase_track(torch, dev, first_lib):
 
 def phase_evaluate(torch):
     from crowdnav_tpu_torch.drivers import evaluate
-    from crowdnav_tpu_torch.ops.lidar import scan_batch
-    from crowdnav_tpu_torch.ops.risk_kernel import track_cp_topk_batch
     ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "crowdnav_tpu_torch", "assets",
                         "final_full_actor.npz")
     with tempfile.TemporaryDirectory() as out:
-        scan_batch.launches = 0
-        track_cp_topk_batch.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         results = evaluate.main([
             "--suite", "train", "--checkpoint", ckpt, "--n-envs",
@@ -408,8 +442,7 @@ def phase_evaluate(torch):
             "1.0", "--seed", "0", "--outdir", out, "--device", "cuda"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"raycast": scan_batch.launches,
-                    "track_cp_topk": track_cp_topk_batch.launches}
+        launches = _read_launches()
     s = results[0]
     for name, count in launches.items():
         if count < EVAL_STEPS:
@@ -434,8 +467,431 @@ def phase_evaluate(torch):
     return launches
 
 
-def main():
+
+def phase_libm(torch, dev):
+    """The C-library trig kernel at the step's shapes (one value per env)
+    against the library on the CPU, and its device time."""
+    from crowdnav_tpu_torch.kernels import build, roofline, timing
+    from crowdnav_tpu_torch.utils import numerics as nm
+    g = torch.Generator(device=dev).manual_seed(5)
+    shapes, worst = {}, 0.0
+    for n in SHAPES:
+        yaw = (torch.rand(n, generator=g, device=dev) * 2 - 1) * math.pi
+        dy = torch.rand(n, generator=g, device=dev) * 3 - 1.5
+        dx = torch.rand(n, generator=g, device=dev) * 3 - 1.5
+        for name, kernel, plain, args, n_in in (
+                ("libm_sincos", lambda x: build.libm_sincos(x, True),
+                 nm.cos, (yaw,), 1),
+                ("libm_atan2", build.libm_atan2, nm.atan2, (dy, dx), 2)):
+            got = kernel(*args)
+            ref = plain(*(a.cpu() for a in args))
+            torch.cuda.synchronize()
+            diff = _n_differ(torch, got, ref)
+            if diff:
+                raise AssertionError(f"{name} n={n}: {diff} elements differ "
+                                     f"from the C library")
+            nbytes, ops, rate = roofline.libm_work(n, n_in)
+            bound, bound_by = roofline.bound_ms(nbytes, ops, rate)
+            sets = timing.clone_args(args, timing.copies_for(nbytes))
+            library = torch.cos if n_in == 1 else torch.atan2
+            cpu_args = tuple(a.cpu() for a in args)
+            t0 = time.perf_counter()
+            plain(*cpu_args)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            shapes.setdefault(name, {})[n] = {
+                "device_ms": timing.device_ms(kernel, sets, reps=100),
+                "plain_ms": plain_ms,
+                "library_ms": timing.device_ms(library, sets, reps=100),
+                "library_differing": _n_differ(torch, library(*args), ref),
+                "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+                "ops": ops}
+    emit({"phase": "libm", "shapes": shapes, "max_abs_diff": worst,
+          "plain": "the C library's cosf/atan2f on CPU tensors "
+                   "(utils/numerics.py), host clock",
+          "library": "torch.cos / torch.atan2 on the card (not the C "
+                     "library's values: library_differing elements)"})
+    return {name: {"max_abs": 0.0, "shapes": sh}
+            for name, sh in shapes.items()}
+
+
+TRAIN_FLAGS = ["--algo", "td3", "--world", "crowd_dense", "--behavior",
+               "crowd", "--jitter", "1.0", "--replay-obs-dtype", "bfloat16",
+               "--seed", "0"]
+TRAIN_FULL = TRAIN_FLAGS + [
+    "--n-envs", "16384", "--chunk", "64", "--updates-per-step", "32",
+    "--batch-size", "4096", "--learn-start", "256", "--reset-bank", "256",
+    "--explore-eps", "1.0", "--explore-eps-min", "0.05",
+    "--explore-spectrum", "--device", "cuda"]
+TRAIN_TIMED_CHUNKS = 2
+SMALL = dict(n=256, steps=3, updates=4)
+
+
+def _to_device(torch, state, dev):
+    """A CPU TrainerState on ``dev``, with a generator there (the draws
+    then come from the caller)."""
+    from crowdnav_tpu_torch.utils.tree import to_device
+    return dataclasses.replace(
+        to_device(state, dev), gen=torch.Generator(device=dev).manual_seed(0))
+
+
+def _train_full(torch):
+    """The training path at full width: a warm-up chunk, then
+    ``TRAIN_TIMED_CHUNKS`` timed chunks with the launch counts and the
+    step's time split."""
+    from crowdnav_tpu_torch.drivers import train as dtrain
+    args = dtrain.parser().parse_args(TRAIN_FULL)
+    trainer = dtrain.build(args)
+    tc = trainer.tcfg
+    t0 = time.perf_counter()
+    state = trainer.init(args.seed)
+    state = trainer.rollout_chunk(state)
+    _, state = trainer.drain_stats(state)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    actor0 = state.agent_state.actor_params.clone()
+    critic0 = state.agent_state.critic_params.clone()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.spans = []
+    _reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_CHUNKS):
+        state = trainer.rollout_chunk(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    split = trainer.span_ms()
+    trainer.spans = None
+    summary, state = trainer.drain_stats(state)
+    steps = TRAIN_TIMED_CHUNKS * tc.rollout_chunk
+    total_steps = (TRAIN_TIMED_CHUNKS + 1) * tc.rollout_chunk
+    size = int(state.replay.size)
+    want_size = min(total_steps * tc.n_envs, trainer.buffer.capacity)
+    out = {"envs": tc.n_envs, "timed_steps": steps,
+           "updates_per_step": tc.updates_per_step,
+           "batch": trainer.agent.cfg.batch_size,
+           "reset_bank": tc.reset_bank, "warmup_chunk_s": warm_s,
+           "timed_wall_s": wall,
+           "env_steps_per_s": steps * tc.n_envs / wall,
+           "wall_ms_per_step": wall * 1e3 / steps,
+           "device_ms_per_step": split,
+           "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "replay_bytes": trainer.buffer.capacity
+           * trainer.buffer.row_bytes(),
+           "replay_size": size, "replay_rows_written": want_size,
+           "learn_metrics": {k: summary[k] for k in
+                             ("critic_loss", "actor_loss", "q_target_mean")},
+           "episodes": summary["episodes"],
+           "actor_moved": float((state.agent_state.actor_params
+                                 - actor0).abs().max()),
+           "critic_moved": float((state.agent_state.critic_params
+                                  - critic0).abs().max())}
+    for name in ("raycast", "track_cp_topk"):
+        if launches[name] != steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{steps} env steps")
+    for name in ("libm_sincos", "libm_atan2"):
+        if launches[name] < steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{steps} env steps")
+    if not all(math.isfinite(v) for v in out["learn_metrics"].values()):
+        raise AssertionError(f"losses not finite: {out['learn_metrics']}")
+    if size != want_size:
+        raise AssertionError(f"replay size {size} != {want_size} rows")
+    if not (out["actor_moved"] > 0 and out["critic_moved"] > 0):
+        raise AssertionError("the learner did not move the parameters")
+    return out
+
+
+def _train_small(torch, dev):
+    """The card against the CPU at 256 envs: three learning steps with
+    every draw made once on the CPU, then four updates each from the CPU's
+    state held to the derived float32 bound."""
+    from crowdnav_tpu_torch.drivers import train as dtrain
+    from crowdnav_tpu_torch.envs import world
+    from crowdnav_tpu_torch.parallel.runtime import StepDraws
+    from crowdnav_tpu_torch.utils.error_bounds import (adam_step_bound,
+                                                       check_update)
+    from crowdnav_tpu_torch.utils.tree import to_device, tree_leaves
+    n, cpu = SMALL["n"], torch.device("cpu")
+    flags = TRAIN_FLAGS + [
+        "--n-envs", str(n), "--chunk", "1", "--updates-per-step",
+        str(SMALL["updates"]), "--batch-size", str(n), "--learn-start",
+        str(n), "--reset-bank", str(n), "--buffer-size", str(4 * n),
+        "--explore-eps", "1.0"]
+    tr_c = dtrain.build(dtrain.parser().parse_args(flags + ["--device",
+                                                            "cpu"]))
+    tr_g = dtrain.build(dtrain.parser().parse_args(flags + ["--device",
+                                                            "cuda"]))
+    tr_g.env.template = to_device(tr_c.env.template, dev)
+    agent_c, agent_g, cfg = tr_c.agent, tr_g.agent, tr_c.env.cfg
+    s_c = tr_c.init(0)
+    s_g = _to_device(torch, s_c, dev)
+    start = s_c.agent_state
+    gen = torch.Generator().manual_seed(11)
+    bsz, updates = agent_c.cfg.batch_size, SMALL["updates"]
+    for step in range(SMALL["steps"]):
+        rows = min(int(s_c.replay.size) + n, tr_c.buffer.capacity)
+        draws = StepDraws(
+            act=agent_c.exploration_draws(n, gen),
+            bank_idx=torch.randint(0, n, (n,), generator=gen),
+            vel=world.random_velocities(cfg, s_c.env_states.ped_pos.shape,
+                                        gen, cpu),
+            sample_idx=[torch.randint(0, rows, (bsz,), generator=gen)
+                        for _ in range(updates)],
+            smoothing=[torch.randn((bsz, 2), generator=gen)
+                       for _ in range(updates)])
+        s_c = tr_c.rollout_chunk(s_c, [draws])
+        s_g = tr_g.rollout_chunk(s_g, [to_device(draws, dev)])
+        pairs = [("obs", s_g.obs, s_c.obs)]
+        pairs += [(f"state.{k}", g, c) for (k, g), (_, c) in zip(
+            tree_leaves(s_g.env_states), tree_leaves(s_c.env_states))]
+        pairs += [(f"replay.{k}", g, c) for (k, g), (_, c) in zip(
+            tree_leaves(s_g.replay), tree_leaves(s_c.replay))]
+        bad = {k: _n_differ(torch, g, c) for k, g, c in pairs}
+        bad = {k: v for k, v in bad.items() if v}
+        if bad:
+            raise AssertionError(f"card vs CPU, step {step}: {bad}")
+    n_updates = int(s_c.agent_state.update_count)
+    drift = {}
+    for name, lr in (("actor_params", agent_c.cfg.actor_lr),
+                     ("critic_params", agent_c.cfg.critic_lr)):
+        bound = 2 * sum(adam_step_bound(lr, t)
+                        for t in range(1, n_updates + 1))
+        a = getattr(s_g.agent_state, name).cpu().double()
+        b = getattr(s_c.agent_state, name).double()
+        drift[name] = float((a - b).abs().max())
+        if drift[name] > bound:
+            raise AssertionError(f"{name}: card and CPU {drift[name]} apart"
+                                 f" after {n_updates} updates, bound {bound}")
+    # each update from the CPU's state: the derived bound
+    state, shares = s_c.agent_state, []
+    rows = int(s_c.replay.size)
+    for _ in range(updates):
+        idx = torch.randint(0, rows, (bsz,), generator=gen)
+        noise = torch.randn((bsz, 2), generator=gen)
+        b_c = tr_c.buffer.sample(s_c.replay, idx=idx)
+        b_g = tr_g.buffer.sample(s_g.replay, idx=idx.to(dev))
+        if any(_n_differ(torch, x, y) for x, y in zip(b_g, b_c)):
+            raise AssertionError("card and CPU samples differ")
+        new_c, m_c = agent_c.update(state, b_c, smoothing_noise=noise)
+        new_g, _ = agent_g.update(to_device(state, dev), b_g,
+                                  smoothing_noise=noise.to(dev))
+        shares.append(check_update(agent_g, state, b_c, noise,
+                                   to_device(new_g, cpu), new_c, m_c))
+        state = new_c
+    moved = float((s_c.agent_state.actor_params
+                   - start.actor_params).abs().max())
+    return {"envs": n, "steps": SMALL["steps"], "updates_per_step": updates,
+            "batch": bsz, "bit_equal": ["obs", "env_states", "replay"],
+            "updates_before_check": n_updates,
+            "param_drift": drift, "param_drift_bound": bound,
+            "bound_shares": shares, "actor_moved": moved}
+
+
+def phase_train(torch, dev):
+    full = _train_full(torch)
+    small = _train_small(torch, dev)
+    emit({"phase": "train", "full": full, "card_vs_cpu": small})
+    return full
+
+
+PARITY_ENVS = 1024
+PARITY_STEPS = 50
+TRIG_SAMPLES = 1 << 20
+
+
+def _n_differ(torch, a, b):
+    """Elements of ``a`` and ``b`` (same shape and dtype) that differ bit
+    for bit."""
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def _trig_inputs(torch):
+    """Float32 arguments for the trig check: the step's ranges (headings,
+    angular rates, goal offsets), then random bit patterns of every finite
+    float32."""
+    g = torch.Generator().manual_seed(7)
+    n = TRIG_SAMPLES // 2
+    small = (torch.rand(n, generator=g) * 2 - 1) * (4 * math.pi)
+    bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=g,
+                         dtype=torch.int64).to(torch.int32).view(
+                             torch.float32)
+    bits = torch.where(torch.isfinite(bits), bits, 0.5)
+    x = torch.cat([small, bits])
+    y = torch.cat([(torch.rand(n, generator=g) * 2 - 1) * 4,
+                   torch.roll(bits, 1)])
+    return x, y
+
+
+def phase_step_parity(torch, dev):
+    """The env step on the card against the step on the CPU, from the same
+    input state at every step, so that differences do not compound."""
+    from crowdnav_tpu_torch.drivers.evaluate import build_agent, \
+        load_actor_file
+    from crowdnav_tpu_torch.envs.config import make_config
+    from crowdnav_tpu_torch.envs import world
+    from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
+    from crowdnav_tpu_torch.utils import numerics as nm
+    from crowdnav_tpu_torch.utils.convert import flax_actor_to_state_dict
+    from crowdnav_tpu_torch.utils.tree import to_device, tree_leaves
+    t0 = time.perf_counter()
+    x, y = _trig_inputs(torch)
+    trig = {}
+    for name, fn, args in (("cos", nm.cos, (x,)), ("sin", nm.sin, (x,)),
+                           ("atan2", nm.atan2, (y, x))):
+        ref = fn(*args)
+        got = fn(*(a.to(dev) for a in args))
+        trig[name] = _n_differ(torch, got, ref)
+
+    cfg = make_config("crowd_dense", "crowd", jitter=1.0)
+    cpu = torch.device("cpu")
+    env_c = CrowdEnv(cfg, device=cpu, seed=0)
+    env_g = CrowdEnv(cfg, device=dev, seed=0)
+    # the card's auto-reset template is the CPU's (the two generators
+    # draw different numbers from one seed)
+    env_g.template = to_device(env_c.template, dev)
+    params, meta = load_actor_file(ACTOR_FILE)
+    agent = build_agent(meta["agent_config"], env_c.obs_dim, cpu)
+    agent.load_actor(flax_actor_to_state_dict(params))
+    gen = torch.Generator().manual_seed(0)
+    state, obs = env_c.reset(PARITY_ENVS, gen)
+    counts, first, n_elems = {}, None, 0
+    for step in range(PARITY_STEPS):
+        act = agent.act(obs)
+        # the crowd's fresh velocities, drawn once for both sides
+        vel = world.random_velocities(cfg, state.ped_pos.shape, gen, cpu)
+        out_c = env_c.step_batch(state, act, vel_draw=vel)
+        out_g = env_g.step_batch(to_device(state, dev),
+                                 act.to(dev), vel_draw=vel.to(dev))
+        # in the order the step computes them: kinematics and crowd,
+        # perception, observation, reward
+        pairs = [(f"state.{n}", g, c) for (n, g), (_, c) in zip(
+            tree_leaves(out_g.state), tree_leaves(out_c.state))]
+        pairs += [("obs", out_g.obs, out_c.obs),
+                  ("reward", out_g.reward, out_c.reward),
+                  ("done", out_g.done, out_c.done)]
+        for name, g, c in pairs:
+            d = _n_differ(torch, g, c)
+            counts[name] = counts.get(name, 0) + d
+            n_elems += c.numel()
+            if d and first is None:
+                first = {"step": step, "field": name, "elements": d,
+                         "fields": [n for n, g2, c2 in pairs
+                                    if _n_differ(torch, g2, c2)]}
+        state, obs = out_c.state, out_c.obs
+    total = sum(counts.values())
+    emit({"phase": "step_parity", "envs": PARITY_ENVS,
+          "steps": PARITY_STEPS, "world": "crowd_dense/crowd, jitter 1.0",
+          "differing_elements": total, "compared_elements": n_elems,
+          "first_difference": first,
+          "by_field": {k: v for k, v in counts.items() if v},
+          "trig_samples": TRIG_SAMPLES, "trig_differing": trig,
+          "glibc": os.confstr("CS_GNU_LIBC_VERSION"),
+          "host_cpu": _cpu_model(), "seconds": time.perf_counter() - t0})
+    if total or any(trig.values()):
+        raise AssertionError(f"the card's step differs from the CPU's in "
+                             f"{total} elements (first: {first}); trig "
+                             f"samples differing: {trig}")
+
+
+def _cpu_model():
+    try:
+        with open("/proc/cpuinfo") as fp:
+            info = fp.read()
+    except OSError:
+        return None
+    model = next((line.split(":", 1)[1].strip() for line in
+                  info.splitlines() if line.startswith("model name")), None)
+    flags = next((line.split(":", 1)[1].split() for line in
+                  info.splitlines() if line.startswith("flags")), [])
+    return {"model": model, "fma": "fma" in flags, "avx2": "avx2" in flags}
+
+
+ALL_PHASES = ("step_parity", "raycast", "track_cp_topk", "libm",
+              "evaluate", "train")
+
+
+def _phases(argv):
+    """Every phase with no arguments; ``--only a,b`` runs those phases
+    (after ``device`` and ``build``) and skips the ``kernels`` line."""
+    if not argv:
+        return ALL_PHASES
+    if len(argv) != 2 or argv[0] != "--only" \
+            or not set(argv[1].split(",")) <= set(ALL_PHASES):
+        raise SystemExit(f"usage: chip_smoke.py [--only "
+                         f"{','.join(ALL_PHASES)}]")
+    return tuple(argv[1].split(","))
+
+
+KERNELS = (
+    ("raycast", "crowdnav_tpu_torch/kernels/csrc/raycast.cu",
+     "crowdnav_tpu/ops/lidar_pallas.py:32",
+     "_raycast_kernel, launched by scan_batch_pallas"),
+    ("track_cp_topk", "crowdnav_tpu_torch/kernels/csrc/track_cp_topk.cu",
+     "crowdnav_tpu/ops/risk_pallas.py:61",
+     "_kernel, launched by track_cp_topk_batch"),
+    ("libm_sincos", "crowdnav_tpu_torch/kernels/csrc/libm_trig.cu",
+     "crowdnav_tpu/envs/world.py:196",
+     "no TPU kernel: the C library's cosf/sinf that the reference's CPU "
+     "step calls (world.py:196, ops/lidar.py:41, envs/crowd_env.py:127)"),
+    ("libm_atan2", "crowdnav_tpu_torch/kernels/csrc/libm_trig.cu",
+     "crowdnav_tpu/ops/geom.py:34",
+     "no TPU kernel: the C library's atan2f that the reference's CPU step "
+     "calls (ops/geom.py:34, envs/world.py:143)"))
+
+
+def kernel_line(smi, stats, train, evaluate):
+    """One entry per kernel: device time, bound, plain and library times
+    at 16,384 envs (and every measured shape), launches on the training
+    run (the slice's main path) and on the evaluate run."""
+    kernels = []
+    steps = train["timed_steps"]
+    for name, src, replaces, what in KERNELS:
+        st = stats[name]
+        big = st["shapes"][N_BIG]
+        lib = big.get("library_ms")
+        entry = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "tpu_kernel": f"{replaces} {what}",
+            "launches": train["launches"][name],
+            "launches_per_train_step": train["launches"][name] / steps,
+            "launches_evaluate": evaluate[name],
+            "launches_per_evaluate_step": evaluate[name] / EVAL_STEPS,
+            "max_abs_err": st["max_abs"], "max_abs_diff": st["max_abs"],
+            "ms": big["device_ms"], "kernel_ms": big["device_ms"],
+            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"], "library_ms": lib,
+            "card": smi, "timing": TIMING}
+        if lib is None:
+            entry["library_ms_reason"] = "no single PyTorch call computes it"
+        else:
+            entry["library_ms_reason"] = (
+                "torch.cos / torch.atan2 on the card: the same function, "
+                "not the C library's values")
+        for n, sh in st["shapes"].items():
+            entry.update({
+                f"device_ms_n{n}": sh["device_ms"],
+                f"plain_ms_n{n}": sh["plain_ms"],
+                f"bound_ms_n{n}": sh["bound_ms"],
+                f"bound_by_n{n}": sh["bound_by"],
+                f"bound_share_n{n}": sh["bound_ms"] / sh["device_ms"]})
+            if "first_design_device_ms" in sh:
+                entry[f"first_design_device_ms_n{n}"] = \
+                    sh["first_design_device_ms"]
+            if "library_ms" in sh:
+                entry[f"library_ms_n{n}"] = sh["library_ms"]
+        kernels.append(entry)
+    return kernels
+
+
+def main(argv=None):
     t_start = time.perf_counter()
+    only = _phases(sys.argv[1:] if argv is None else argv)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -447,45 +903,26 @@ def main():
     torch.cuda.set_device(dev)
     smi = phase_device(torch)
     first_lib = phase_build()
-    ray = phase_raycast(torch, dev, first_lib)
-    trk = phase_track(torch, dev, first_lib)
-    launches = phase_evaluate(torch)
-    kernels = []
-    for name, stats, src, tpu, fn in (
-            ("raycast", ray, "crowdnav_tpu_torch/kernels/csrc/raycast.cu",
-             "crowdnav_tpu/ops/lidar_pallas.py:32",
-             "_raycast_kernel, launched by scan_batch_pallas"),
-            ("track_cp_topk", trk,
-             "crowdnav_tpu_torch/kernels/csrc/track_cp_topk.cu",
-             "crowdnav_tpu/ops/risk_pallas.py:61",
-             "_kernel, launched by track_cp_topk_batch")):
-        big = stats["shapes"][N_BIG]
-        entry = {
-            "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "tpu_kernel": f"{tpu} {fn}", "launches": launches[name],
-            "launches_per_step": launches[name] / EVAL_STEPS,
-            "max_abs_err": stats["max_abs"],
-            "max_abs_diff": stats["max_abs"], "ms": big["device_ms"],
-            "kernel_ms": big["device_ms"], "plain_ms": big["plain_ms"],
-            "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-            "library_ms": None,
-            "library_ms_reason": "no single PyTorch call computes it",
-            "card": smi, "timing": TIMING}
-        for n in SHAPES:
-            sh = stats["shapes"][n]
-            entry.update({
-                f"device_ms_n{n}": sh["device_ms"],
-                f"first_design_device_ms_n{n}": sh["first_design_device_ms"],
-                f"plain_ms_n{n}": sh["plain_ms"],
-                f"bound_ms_n{n}": sh["bound_ms"],
-                f"bound_by_n{n}": sh["bound_by"],
-                f"bound_share_n{n}": sh["bound_ms"] / sh["device_ms"]})
-        kernels.append(entry)
-    emit({"kernels": kernels})
+    stats = {}
+    if "step_parity" in only:
+        phase_step_parity(torch, dev)
+    if "raycast" in only:
+        stats["raycast"] = phase_raycast(torch, dev, first_lib)
+    if "track_cp_topk" in only:
+        stats["track_cp_topk"] = phase_track(torch, dev, first_lib)
+    if "libm" in only:
+        stats.update(phase_libm(torch, dev))
+    evaluate = phase_evaluate(torch) if "evaluate" in only else None
+    train = phase_train(torch, dev) if "train" in only else None
+    if only != ALL_PHASES:
+        emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+        return 0
+    emit({"kernels": kernel_line(smi, stats, train, evaluate)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+    return 0
 
 
 if __name__ == "__main__":

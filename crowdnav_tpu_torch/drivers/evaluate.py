@@ -6,22 +6,28 @@ reward and steps, and ego/social safety in the reference's CSV schema.
         --checkpoint crowdnav_tpu_torch/assets/final_full_actor.npz
 
 ``--checkpoint`` takes an actor exported by ``scripts/export_torch_actor.py``
-(the flax actor arrays and the training run's ``run_config.json``).
+(the flax actor arrays and the training run's ``run_config.json``), or an
+agent checkpoint of the port's ``drivers/train`` (a directory of
+``agent_<step>.npz`` files, or one of them; ``scripts/export_torch_agent.py``
+writes the same format from a JAX checkpoint).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
 
-import numpy as np
 import torch
 
 from crowdnav_tpu_torch.agents.td3 import TD3, TD3Config
 from crowdnav_tpu_torch.envs.config import ROBOT_PRESETS, make_config
 from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
 from crowdnav_tpu_torch.parallel.runtime import Trainer, TrainerConfig
+from crowdnav_tpu_torch.utils.checkpoint import (agent_file,
+                                                 load_run_metadata,
+                                                 read_arrays)
 from crowdnav_tpu_torch.utils.convert import (flax_actor_to_state_dict,
                                               npz_to_flax_actor)
 from crowdnav_tpu_torch.utils.device import resolve
@@ -43,12 +49,14 @@ SUITES = {
 
 
 def load_actor_file(path: str):
-    """(flax actor params, run metadata or None) from an exported file."""
-    with np.load(path, allow_pickle=False) as f:
-        arrays = {k: f[k] for k in f.files}
-    meta = None
-    if "run_config" in arrays:
-        meta = json.loads(str(arrays.pop("run_config")))
+    """(flax actor params, run metadata or None) from an exported actor
+    file or an agent checkpoint (file or directory)."""
+    arrays, meta = read_arrays(agent_file(path))
+    if "actor_params/Dense_0/kernel" in arrays:     # an agent checkpoint
+        arrays = {k[len("actor_params/"):]: v for k, v in arrays.items()
+                  if k.startswith("actor_params/")}
+        if meta is None and os.path.isdir(path):
+            meta = load_run_metadata(path)
     return npz_to_flax_actor(arrays), meta
 
 
@@ -93,7 +101,8 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--algo", default="td3", choices=["td3"])
     p.add_argument("--checkpoint", default=None,
-                   help="actor file written by scripts/export_torch_actor.py")
+                   help="actor file written by scripts/export_torch_actor.py"
+                        ", or an agent checkpoint of drivers/train")
     p.add_argument("--suite", default="20", choices=list(SUITES))
     p.add_argument("--ablation", default=None)
     p.add_argument("--robot", default=None, choices=list(ROBOT_PRESETS))

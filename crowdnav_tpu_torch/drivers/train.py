@@ -1,0 +1,300 @@
+"""Training driver of the port (``crowdnav_tpu/drivers/train.py``), TD3 on
+the perceived-risk env: chunked batched training, one aggregate CSV row
+per chunk in the reference's schema plus the greedy cohort's columns,
+periodic and final checkpoints, and the collapse restart of the flagship
+recipe.
+
+    python -m crowdnav_tpu_torch.drivers.train --algo td3 \\
+        --world crowd_dense --behavior crowd --n-envs 16384 --chunk 64 \\
+        --env-steps 64e6 --updates-per-step 32 --batch-size 4096 \\
+        --learn-start 32768 --replay-obs-dtype bfloat16 --jitter 1.0 \\
+        --explore-eps 1.0 --explore-eps-min 0.05 --explore-spectrum \\
+        --restart-on-collapse 3 --outdir results/torch_full
+
+Options of the JAX driver whose modules are not ported raise: the other
+algorithms, several devices or hosts, the profiler trace, the per-step
+noise knobs, the bfloat16 learner and the Pallas risk backend. Three
+faults of the JAX driver are not carried over: the final attempt's
+collapse verdict is printed, the printed ``env_steps`` count the steps of
+collapse-restarted attempts, and ``--resume`` keeps that count.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+from crowdnav_tpu_torch.agents.td3 import TD3, TD3Config
+from crowdnav_tpu_torch.envs.config import (ABLATION_PRESETS, ROBOT_PRESETS,
+                                            make_config)
+from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
+from crowdnav_tpu_torch.parallel.runtime import Trainer, TrainerConfig
+from crowdnav_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                 save_agent, save_checkpoint,
+                                                 save_run_metadata)
+from crowdnav_tpu_torch.utils.device import resolve
+from crowdnav_tpu_torch.utils.logging import EpisodeLogger
+from crowdnav_tpu_torch.utils.profiling import StepThroughput
+
+
+def build_agent(args, obs_dim: int, device) -> TD3:
+    """The TD3 agent of the command line (``_build_agent`` of the JAX
+    driver)."""
+    kw = {}
+    if args.actor_lr:
+        kw.update(actor_lr=args.actor_lr)
+    if args.critic_lr:
+        kw.update(critic_lr=args.critic_lr)
+    if args.sigma_min is not None:
+        kw.update(explore_sigma_min=args.sigma_min,
+                  explore_decay_steps=int(args.sigma_decay_steps))
+    if args.batch_size:
+        kw.update(batch_size=args.batch_size)
+    if args.buffer_size:
+        kw.update(buffer_size=args.buffer_size)
+    if args.explore_eps:
+        kw.update(explore_uniform_eps=args.explore_eps)
+        if args.explore_eps_min is not None:
+            kw.update(explore_uniform_eps_min=args.explore_eps_min)
+        if args.explore_spectrum:
+            kw.update(explore_eps_spectrum=True)
+    return TD3(TD3Config(**kw), obs_dim, device=device)
+
+
+def run_metadata(args, trainer) -> dict:
+    """Everything evaluate and resume need to rebuild the agent and env;
+    the keys of the JAX driver's ``run_metadata``."""
+    return {
+        "algo": args.algo,
+        "agent_config": dataclasses.asdict(trainer.agent.cfg),
+        "obs_dim": trainer.env.obs_dim,
+        "world": args.world,
+        "behavior": args.behavior,
+        "ablation": args.ablation,
+        "robot": args.robot,
+        "jitter": args.jitter,
+        "actuation_noise": args.actuation_noise,
+        "dt_jitter": args.dt_jitter,
+        "lidar_noise": args.lidar_noise,
+        "n_envs": args.n_envs,
+        "updates_per_step": args.updates_per_step,
+        "replay_obs_dtype": args.replay_obs_dtype or "float32",
+        "seed": args.seed,
+    }
+
+
+def collapse_verdict(summary: dict, chunk: int, args):
+    """Early-collapse gate of ``--restart-on-collapse`` (the JAX driver's,
+    calibrated on the round-5 corpus): None while deferred (before the
+    detection chunk, or no episode in this chunk's window), else True
+    (collapsed: mean episode reward below the threshold) or False."""
+    if chunk + 1 < args.collapse_detect_chunk:
+        return None
+    if summary["episodes"] == 0:
+        return None
+    return summary["mean_reward"] < args.collapse_reward_threshold
+
+
+def _refuse_unported(args):
+    bad = []
+    if args.algo != "td3":
+        bad.append(f"--algo {args.algo}")
+    if args.n_devices > 1:
+        bad.append("--n-devices > 1")
+    if args.multihost:
+        bad.append("--multihost")
+    if args.profile_dir:
+        bad.append("--profile-dir")
+    for flag in ("actuation_noise", "dt_jitter", "lidar_noise"):
+        if getattr(args, flag):
+            bad.append(f"--{flag.replace('_', '-')}")
+    if args.learner_dtype == "bfloat16":
+        bad.append("--learner-dtype bfloat16")
+    if args.risk_backend == "pallas":
+        bad.append("--risk-backend pallas (the port's tracker kernel "
+                   "follows the XLA chain)")
+    if bad:
+        raise SystemExit("not ported yet: " + ", ".join(bad))
+
+
+def build(args) -> Trainer:
+    device = resolve(args.device)
+    cfg = make_config(args.world, args.behavior, ablation=args.ablation,
+                      jitter=args.jitter, robot=args.robot,
+                      max_steps=args.max_steps)
+    env = CrowdEnv(cfg, device=device, seed=args.seed)
+    agent = build_agent(args, env.obs_dim, device)
+    reset_bank = args.reset_bank
+    if args.jitter and not reset_bank:
+        # jittered resets need distinct spawns at every auto-reset
+        reset_bank = max(256, args.n_envs)
+    tcfg = TrainerConfig(n_envs=args.n_envs, rollout_chunk=args.chunk,
+                         updates_per_step=args.updates_per_step,
+                         learn_start=args.learn_start, reset_bank=reset_bank,
+                         replay_obs_dtype=args.replay_obs_dtype or "float32")
+    return Trainer(env, agent, tcfg)
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    p.add_argument("--algo", required=True,
+                   choices=["td3", "ddpg", "sac", "dqn"])
+    p.add_argument("--world", default="crowd_dense")
+    p.add_argument("--behavior", default="crowd")
+    p.add_argument("--ablation", default=None, choices=list(ABLATION_PRESETS))
+    p.add_argument("--robot", default=None, choices=list(ROBOT_PRESETS))
+    p.add_argument("--n-envs", type=int, default=1024)
+    p.add_argument("--n-devices", type=int, default=1)
+    p.add_argument("--env-steps", type=float, default=2e6)
+    p.add_argument("--chunk", type=int, default=128)
+    p.add_argument("--max-steps", type=int, default=500)
+    p.add_argument("--updates-per-step", type=int, default=1)
+    p.add_argument("--learn-start", type=int, default=1024)
+    p.add_argument("--learner-dtype", default=None,
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--replay-obs-dtype", default=None,
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--actor-lr", type=float, default=None)
+    p.add_argument("--critic-lr", type=float, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--buffer-size", type=int, default=None,
+                   help="replay rows (the port's option; default TD3Config's"
+                        " 1,000,000, rounded up to whole blocks of --n-envs)")
+    p.add_argument("--jitter", type=float, default=0.0)
+    p.add_argument("--actuation-noise", type=float, default=0.0)
+    p.add_argument("--dt-jitter", type=float, default=0.0)
+    p.add_argument("--risk-backend", default=None, choices=["xla", "pallas"])
+    p.add_argument("--lidar-noise", type=float, default=0.0)
+    p.add_argument("--reset-bank", type=int, default=0)
+    p.add_argument("--sigma-min", type=float, default=None)
+    p.add_argument("--sigma-decay-steps", type=float, default=1e6)
+    p.add_argument("--explore-eps", type=float, default=0.0)
+    p.add_argument("--explore-eps-min", type=float, default=None)
+    p.add_argument("--explore-spectrum", action="store_true")
+    p.add_argument("--outdir", default="results")
+    p.add_argument("--ckpt-every-chunks", type=int, default=50)
+    p.add_argument("--snapshot-every-chunks", type=int, default=0)
+    p.add_argument("--restart-on-collapse", type=int, default=0,
+                   metavar="N")
+    p.add_argument("--collapse-detect-chunk", type=int, default=24)
+    p.add_argument("--collapse-reward-threshold", type=float,
+                   default=-100.0)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--profile-dir", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--device", default="cuda",
+                   help="torch device, 'cuda' (default) or 'cpu'")
+    return p
+
+
+def _emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    _refuse_unported(args)
+    try:
+        trainer = build(args)
+    except RuntimeError as e:       # no card for --device cuda
+        raise SystemExit(str(e))
+    agent = trainer.agent
+    t_init = time.time()
+    state = trainer.init(args.seed)
+    _emit({"event": "initialized", "secs": round(time.time() - t_init, 1)})
+    ckpt_dir = f"{args.outdir}/ckpt_{args.algo}"
+    agent_dir = f"{args.outdir}/agent_ckpt_{args.algo}"
+    snap_dir = f"{args.outdir}/agent_snapshots_{args.algo}"
+    steps_done, wasted_steps, attempt = 0, 0, 0
+    if args.resume:
+        state, steps_done, counters = restore_checkpoint(ckpt_dir, state)
+        wasted_steps = counters.get("wasted_steps", 0)
+        attempt = counters.get("attempt", 0)
+        print(f"resumed from step {steps_done} ({wasted_steps} env-steps "
+              f"of restarted attempts)", flush=True)
+    meta = run_metadata(args, trainer)
+    for d in [ckpt_dir, agent_dir] + ([snap_dir]
+                                      if args.snapshot_every_chunks else []):
+        save_run_metadata(d, meta)
+    logger = EpisodeLogger(args.outdir, f"{args.algo}_training",
+                           extra_headers=["greedy_episodes",
+                                          "greedy_success_rate"])
+
+    spc = args.n_envs * args.chunk
+    n_chunks = max(1, int((args.env_steps - steps_done) // spc))
+    throughput = StepThroughput(spc, device=trainer.device)
+    episode_base = 0
+    t_start = time.time()
+    verdict_done = False
+    chunk = 0
+
+    def counters():
+        return {"wasted_steps": wasted_steps, "attempt": attempt}
+
+    while chunk < n_chunks:
+        t0 = time.time()
+        state = trainer.rollout_chunk(state)
+        tput = throughput.tick()
+        summary, state = trainer.drain_stats(state)
+        logger.record_summary(summary, episode_base, time.time() - t0)
+        episode_base += summary["episodes"]
+        _emit({"chunk": chunk,
+               "env_steps": steps_done + wasted_steps + (chunk + 1) * spc,
+               "sps": round(tput["sps"], 1),
+               "sps_ema": round(tput["sps_ema"], 1),
+               **{k: (round(v, 4) if isinstance(v, float) else v)
+                  for k, v in summary.items()}})
+        if args.restart_on_collapse and not verdict_done:
+            verdict = collapse_verdict(summary, chunk, args)
+            if verdict is not None:
+                verdict_done = True
+                restart = verdict and attempt < args.restart_on_collapse
+                _emit({"event": "collapse_check",
+                       "verdict": "collapsed" if verdict else "healthy",
+                       "attempt": attempt, "chunk": chunk,
+                       "mean_reward": round(summary["mean_reward"], 2),
+                       "restart": restart})
+                if restart:
+                    attempt += 1
+                    _emit({"event": "collapse_restart", "attempt": attempt,
+                           "mean_reward": round(summary["mean_reward"], 2),
+                           "threshold": args.collapse_reward_threshold,
+                           "new_seed": args.seed + 1009 * attempt})
+                    wasted_steps += steps_done + (chunk + 1) * spc
+                    steps_done = 0
+                    state = None      # free the ring before the next one
+                    state = trainer.init(args.seed + 1009 * attempt)
+                    n_chunks = max(1, int(args.env_steps // spc))
+                    chunk = 0
+                    verdict_done = False
+                    continue
+        chunk += 1
+        # each attempt anneals from its own start
+        state = dataclasses.replace(state, agent_state=agent.decay_sigma(
+            state.agent_state, steps_done + chunk * spc))
+        key = steps_done + wasted_steps + chunk * spc
+        if args.ckpt_every_chunks and chunk % args.ckpt_every_chunks == 0:
+            save_checkpoint(ckpt_dir, state, steps_done + chunk * spc,
+                            counters())
+        if args.snapshot_every_chunks \
+                and chunk % args.snapshot_every_chunks == 0:
+            save_agent(snap_dir, agent, state.agent_state, key, meta)
+    final = steps_done + n_chunks * spc
+    save_checkpoint(ckpt_dir, state, final, counters())
+    save_agent(agent_dir, agent, state.agent_state, final + wasted_steps,
+               meta)
+    agent.sync_actor(state.agent_state)
+    _emit({"event": "done", "env_steps": wasted_steps + final,
+           "attempt_env_steps": final, "collapse_restarts": attempt,
+           "seconds": round(time.time() - t_start, 1),
+           "device_memory": throughput.device_memory()})
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -16,20 +16,11 @@ import torch
 from crowdnav_tpu_torch.envs.config import CrowdBehavior, EnvConfig
 from crowdnav_tpu_torch.utils import numerics as nm
 from crowdnav_tpu_torch.utils.device import resolve
+from crowdnav_tpu_torch.utils.tree import tree_map
 
 F32 = torch.float32
 PI = nm.f32(math.pi)
 TWO_PI = nm.f32(2 * math.pi)
-
-
-def _map(fn, *objs):
-    """Apply ``fn`` leaf-wise over equal dataclasses of tensors."""
-    first = objs[0]
-    if dataclasses.is_dataclass(first):
-        return type(first)(**{
-            f.name: _map(fn, *(getattr(o, f.name) for o in objs))
-            for f in dataclasses.fields(first)})
-    return fn(*objs)
 
 
 class _Tree:
@@ -37,7 +28,7 @@ class _Tree:
         return dataclasses.replace(self, **kw)
 
     def map(self, fn, *others):
-        return _map(fn, self, *others)
+        return tree_map(fn, self, *others)
 
 
 @dataclasses.dataclass
@@ -225,6 +216,11 @@ def integrate_robot(pos, yaw, lin_vel, ang_vel, dt, wheel_separation,
     return new_pos, nm.fma(diff, float(c_yaw), yaw)
 
 
+def random_velocities(cfg: EnvConfig, shape, gen, device) -> torch.Tensor:
+    """The RANDOM behavior's fresh uniform pedestrian velocities."""
+    return _uniform(gen, shape, -cfg.crowd_speed, cfg.crowd_speed, device)
+
+
 def crowd_step(cfg: EnvConfig, step, ped_pos, ped_vel, ped_dirs, ped_phase,
                vel_draw=None, gen=None):
     """Advance pedestrians one dt. ``vel_draw`` (N, P, 2) is the RANDOM
@@ -234,8 +230,8 @@ def crowd_step(cfg: EnvConfig, step, ped_pos, ped_vel, ped_dirs, ped_phase,
     redraw = torch.remainder(step + ped_phase, cfg.redraw_window_steps) == 0
     if cfg.behavior == CrowdBehavior.RANDOM:
         if vel_draw is None:
-            vel_draw = _uniform(gen, ped_pos.shape, -cfg.crowd_speed,
-                                cfg.crowd_speed, ped_pos.device)
+            vel_draw = random_velocities(cfg, ped_pos.shape, gen,
+                                         ped_pos.device)
         new_vel = vel_draw
     elif cfg.behavior == CrowdBehavior.STATIC:
         new_vel = torch.zeros_like(ped_vel)

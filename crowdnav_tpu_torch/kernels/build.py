@@ -42,6 +42,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "crowdnav_raycast": [_P] * 7 + [_I] * 7 + [_F] * 4 + [_P],
     "crowdnav_track_cp_topk": [_P] + [_I] * 6 + [_F] * 8 + [_P],
+    "crowdnav_libm_sincos": [_P] * 2 + [_I] * 4 + [_P],
+    "crowdnav_libm_atan2": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 
@@ -60,7 +62,7 @@ def _nvcc() -> str:
 
 def library_path(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources(csrc):
+    for src in sorted(Path(csrc).glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcrowdnav_kernels_{h.hexdigest()[:16]}.so"
@@ -222,3 +224,41 @@ def track_cp_topk(cfg, seg_conf, seg_obs, seg_pos, seg_dist, t_valid, t_pos,
         _stream(seg_conf.device))
     _check(code, "crowdnav_track_cp_topk")
     return outs[:7], outs[7:]
+
+
+def _elementwise_input(name, t):
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: {t.numel()} elements overflow the "
+                         f"kernel's 32-bit index")
+    return t.contiguous()
+
+
+def libm_sincos(x, cosine: bool):
+    """Launch the C library's ``cosf`` (``cosine``) or ``sinf`` of every
+    element of the float32 CUDA tensor ``x``."""
+    x = _elementwise_input("x", x)
+    out = torch.empty_like(x)
+    geo = launch.elementwise_launch(x.numel())
+    code = library().crowdnav_libm_sincos(
+        x.data_ptr(), out.data_ptr(), x.numel(), int(cosine), geo.grid,
+        geo.threads, _stream(x.device))
+    _check(code, "crowdnav_libm_sincos")
+    return out
+
+
+def libm_atan2(y, x):
+    """Launch the C library's ``atan2f(y, x)`` elementwise; ``y`` and
+    ``x`` broadcast."""
+    y, x = torch.broadcast_tensors(y, x)
+    y, x = _elementwise_input("y", y), _elementwise_input("x", x)
+    out = torch.empty_like(y)
+    geo = launch.elementwise_launch(y.numel())
+    code = library().crowdnav_libm_atan2(
+        y.data_ptr(), x.data_ptr(), out.data_ptr(), y.numel(), geo.grid,
+        geo.threads, _stream(y.device))
+    _check(code, "crowdnav_libm_atan2")
+    return out

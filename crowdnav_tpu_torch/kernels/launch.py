@@ -7,6 +7,9 @@ come from the sweep of ``scripts/bench_torch_kernels.py``.
 Tracker -> CP -> top-K (``csrc/track_cp_topk.cu``): one warp per env,
 ``envs_per_block`` envs to a block.
 
+Elementwise C-library trig (``csrc/libm_trig.cu``): one thread an element,
+blocks of 256, at most 8 blocks an SM, a grid-stride loop beyond.
+
 Raycast (``csrc/raycast.cu``): a thread takes R beams of one env, beams
 j + r * M for r < R with M = ceil(B / R) slots per env; threads run over
 the flat (env, slot) index. A block's threads touch at most
@@ -21,6 +24,20 @@ import dataclasses
 TRACK_ENVS_PER_BLOCK = 4
 RAYCAST_BEAMS_PER_THREAD = (2, 4, 8)
 TRACK_MAX_ENVS_PER_BLOCK = 16   # blocks of at most 512 threads
+ELEMENTWISE_THREADS = 256
+ELEMENTWISE_MAX_BLOCKS = 132 * 8   # 8 blocks on each of the H100's SMs
+
+
+@dataclasses.dataclass(frozen=True)
+class ElementwiseLaunch:
+    grid: int
+    threads: int
+
+
+def elementwise_launch(n: int) -> ElementwiseLaunch:
+    blocks = -(-n // ELEMENTWISE_THREADS)
+    return ElementwiseLaunch(max(1, min(blocks, ELEMENTWISE_MAX_BLOCKS)),
+                             ELEMENTWISE_THREADS)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,6 +15,14 @@ from crowdnav_tpu_torch.utils import numerics as nm
 
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_F64_FLOPS = 34e12   # float64 outside the tensor cores
+
+# the C library's sinf/cosf in double (``csrc/libm_f32.cuh``): the
+# fast reduction (3), the polynomial (8) and the conversions (2);
+# atan2f in float: the reduction's division and the 11-term polynomial
+# in two halves (about 30)
+LIBM_SINCOS_F64_OPS = 13
+LIBM_ATAN2_F32_OPS = 30
 
 # raycast operations: per beam, the direction (two products, two
 # multiply-adds: 6), the walls (two differences, two divisions, the
@@ -28,11 +36,11 @@ RAYCAST_OPS_PER_HIT = 3
 RAYCAST_OPS_PER_ENV_PED = 5
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, flops: float = H100_F32_FLOPS):
     """``(ms, "bytes" or "operations")``: the least time and what sets
-    it."""
+    it, for ``ops`` at the rate ``flops``."""
     t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = ops / H100_F32_FLOPS
+    t_ops = ops / flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -87,3 +95,13 @@ def track_cp_topk_work(n: int, S: int, T: int, K: int):
     nbytes = n * sum(row for _, row in inputs + outputs)
     ops = n * (T * S * 12 + T * 60 + T * T * 3)
     return nbytes, ops
+
+
+def libm_work(n: int, n_inputs: int):
+    """``(bytes, ops, rate)`` of the C-library trig kernel on ``n``
+    floats: ``cos``/``sin`` (one input, float64 arithmetic) or ``atan2``
+    (two inputs, float32)."""
+    nbytes = 4 * n * (n_inputs + 1)
+    if n_inputs == 1:
+        return nbytes, n * LIBM_SINCOS_F64_OPS, H100_F64_FLOPS
+    return nbytes, n * LIBM_ATAN2_F32_OPS, H100_F32_FLOPS

@@ -1,32 +1,57 @@
-"""Rollout runtime (port of ``crowdnav_tpu/parallel/runtime.py``), for
-evaluation: ``learning=False``.
+"""Actor-learner runtime (port of ``crowdnav_tpu/parallel/runtime.py``).
 
-N lockstep envs act with the greedy policy, step together, auto-reset from
-the reset bank, and accumulate the episode statistics of the reference's
-CSV schema on the device; ``drain_stats`` reads them out. No replay is
-allocated: the learning half comes with the training slice.
+N lockstep envs act, step together, auto-reset from the reset bank, and
+accumulate the episode statistics of the reference's CSV schema on the
+device; ``drain_stats`` reads them out. With ``learning=True`` the actions
+explore, every step's transitions go into the replay ring (the terminal ->
+reset rows masked out), and once the ring holds ``learn_start`` rows every
+step takes ``updates_per_step`` TD3 updates, each on a fresh uniform
+sample. The ring's size is read on the host only until that gate has
+opened once (it only grows); after that a step makes no device-to-host
+read. Every draw comes from the state's generator, or from ``draws``
+(:class:`StepDraws`, one per step), through which a test feeds the JAX
+package's draws.
+
+Setting ``Trainer.spans`` to a list turns on timing: each step then
+appends five recorded CUDA events, ``(start, acted, stepped,
+added, learned)``, read by ``span_ms``; off (None), nothing is recorded.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
+from crowdnav_tpu_torch.agents.replay import ReplayBuffer, Transition
+from crowdnav_tpu_torch.agents.td3 import eps_spectrum
 from crowdnav_tpu_torch.envs.crowd_env import select_rows
 from crowdnav_tpu_torch.envs.world import EnvState
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """The evaluation fields of the JAX ``TrainerConfig``; the learner's
-    fields come with the training slice."""
+    """The JAX ``TrainerConfig``, field for field."""
 
     n_envs: int = 1024
+    updates_per_step: int = 1     # gradient updates per batched env step
     rollout_chunk: int = 64       # env-steps per ``rollout_chunk`` call
+    learn_start: int = 256        # min replay rows before learning
     learning: bool = True         # False = pure evaluation rollouts
     reset_bank: int = 0           # >0: auto-resets draw from this many
                                   # pre-randomized reset states
+    replay_obs_dtype: str = "float32"   # or "bfloat16"
+
+
+class StepDraws(NamedTuple):
+    """Pre-drawn randomness of one step (tests); a None field is drawn
+    from the state's generator."""
+
+    act: Any = None               # (noise, unif, u) of ``TD3.explore``
+    bank_idx: Any = None          # (N,) reset-bank entries
+    vel: Any = None               # (N, P, 2) random-crowd velocities
+    sample_idx: Any = None        # [updates_per_step] x (batch,) rows
+    smoothing: Any = None         # [updates_per_step] x (batch, 2)
 
 
 @dataclasses.dataclass
@@ -65,6 +90,9 @@ def init_stats(n_envs: int, device="cuda") -> EpisodeStats:
         greedy_successes=zi())
 
 
+LEARN_METRICS = ("critic_loss", "actor_loss", "q_target_mean")
+
+
 def greedy_env_mask(agent, n_envs: int, eps_cutoff: float = 0.1,
                     device="cpu") -> torch.Tensor:
     """(n_envs,) bool: envs whose behavior policy is (near-)greedy under
@@ -72,11 +100,7 @@ def greedy_env_mask(agent, n_envs: int, eps_cutoff: float = 0.1,
     cfg = agent.cfg
     if getattr(cfg, "explore_eps_spectrum", False) \
             and getattr(cfg, "explore_uniform_eps", 0.0) > 0.0:
-        hi = cfg.explore_uniform_eps
-        lo = getattr(cfg, "explore_uniform_eps_min", None) or 0.01
-        frac = (torch.arange(n_envs, dtype=torch.float32)
-                / max(n_envs - 1, 1))
-        eps = hi * (lo / hi) ** frac
+        eps = eps_spectrum(cfg, n_envs, folded=False)
         return (eps <= eps_cutoff).to(device)
     return torch.ones((n_envs,), dtype=torch.bool, device=device)
 
@@ -88,21 +112,31 @@ class TrainerState:
     stats: EpisodeStats
     gen: torch.Generator            # every draw of the rollout
     reset_bank: Optional[Any] = None  # (bank_states, bank_obs) or None
+    agent_state: Optional[Any] = None   # TD3State when learning
+    replay: Optional[Any] = None        # ReplayState when learning
+    learn_metrics: Optional[dict] = None  # the last update's, on device
+    learning_open: bool = False     # host: the learn gate has opened
 
 
 class Trainer:
-    """Binds an env and an agent into batched rollouts (evaluation only)."""
+    """Binds an env and an agent into batched rollouts, and with
+    ``learning`` into training: exploring acts, the replay ring and TD3
+    updates."""
 
     def __init__(self, env, agent, tcfg: TrainerConfig):
-        if tcfg.learning:
-            raise NotImplementedError(
-                "learning=True comes with the training slice")
         self.env = env
         self.agent = agent
         self.tcfg = tcfg
         self.device = env.device
         self.greedy_mask = greedy_env_mask(agent, tcfg.n_envs,
                                            device=self.device)
+        self.spans = None
+        self.buffer = None
+        if tcfg.learning:
+            self.buffer = ReplayBuffer(agent.cfg.buffer_size, env.obs_dim,
+                                       env.action_dim, block=tcfg.n_envs,
+                                       obs_dtype=tcfg.replay_obs_dtype,
+                                       device=self.device)
 
     def init(self, seed: int) -> TrainerState:
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -110,24 +144,44 @@ class Trainer:
         bank = None
         if self.tcfg.reset_bank:
             bank = self.env.reset(self.tcfg.reset_bank, gen)
-        return TrainerState(env_states=env_states, obs=obs,
-                            stats=init_stats(self.tcfg.n_envs, self.device),
-                            gen=gen, reset_bank=bank)
+        state = TrainerState(env_states=env_states, obs=obs,
+                             stats=init_stats(self.tcfg.n_envs, self.device),
+                             gen=gen, reset_bank=bank)
+        if self.tcfg.learning:
+            zero = torch.zeros((), dtype=torch.float32, device=self.device)
+            state = dataclasses.replace(
+                state, agent_state=self.agent.init_state(seed),
+                replay=self.buffer.init(),
+                learn_metrics={k: zero.clone() for k in LEARN_METRICS})
+        return state
 
     @torch.no_grad()
-    def _train_step(self, state: TrainerState) -> TrainerState:
+    def _train_step(self, state: TrainerState,
+                    draws: StepDraws | None = None) -> TrainerState:
         tcfg = self.tcfg
-        actions = self.agent.act(state.obs, explore=False)
+        draws = draws or StepDraws()
+        marks = [self._mark()]
+        if tcfg.learning:
+            actions = self.agent.act(state.obs, explore=True,
+                                     state=state.agent_state, gen=state.gen,
+                                     draws=draws.act)
+        else:
+            actions = self.agent.act(state.obs, explore=False)
+        marks.append(self._mark())
         was_done = state.env_states.done
-        out = self.env.step_batch(state.env_states, actions, gen=state.gen)
+        state_obs = state.obs
+        out = self.env.step_batch(state.env_states, actions, gen=state.gen,
+                                  vel_draw=draws.vel)
 
         new_states, new_obs = out.state, out.obs
         if state.reset_bank is not None:
             # diverse auto-reset: rows the env reset to its template take
             # a randomly drawn bank entry instead
             bank_states, bank_obs = state.reset_bank
-            idx = torch.randint(0, tcfg.reset_bank, (tcfg.n_envs,),
-                                generator=state.gen, device=self.device)
+            idx = draws.bank_idx
+            if idx is None:
+                idx = torch.randint(0, tcfg.reset_bank, (tcfg.n_envs,),
+                                    generator=state.gen, device=self.device)
             new_states = select_rows(
                 was_done, bank_states.map(lambda a: a[idx]), new_states)
             new_obs = torch.where(was_done[:, None], bank_obs[idx], new_obs)
@@ -165,12 +219,74 @@ class Trainer:
             + (done_now & self.greedy_mask).sum(dtype=i32),
             greedy_successes=st.greedy_successes
             + (succ & self.greedy_mask).sum(dtype=i32))
-        return dataclasses.replace(state, env_states=new_states,
-                                   obs=new_obs, stats=stats)
+        state = dataclasses.replace(state, env_states=new_states,
+                                    obs=new_obs, stats=stats)
+        marks.append(self._mark())
+        if tcfg.learning:
+            # replay: drop the terminal -> reset rows
+            tr = Transition(obs=state_obs, action=actions, reward=out.reward,
+                            next_obs=out.obs, done=out.done.float())
+            state = self._learn_step(state, tr, ~was_done, draws, marks)
+        if self.spans is not None:
+            self.spans.append(marks + [marks[-1]] * (5 - len(marks)))
+        return state
 
-    def rollout_chunk(self, state: TrainerState) -> TrainerState:
-        for _ in range(self.tcfg.rollout_chunk):
-            state = self._train_step(state)
+    def _learn_step(self, state: TrainerState, tr: Transition, mask,
+                    draws: StepDraws, marks: list) -> TrainerState:
+        replay = self.buffer.add_batch(state.replay, tr, mask=mask)
+        state = dataclasses.replace(state, replay=replay)
+        marks.append(self._mark())
+        if not state.learning_open:
+            if int(replay.size) < self.tcfg.learn_start:
+                return state
+            state = dataclasses.replace(state, learning_open=True)
+        agent_state, metrics = self._learn(state.agent_state, replay,
+                                           state.gen, draws)
+        marks.append(self._mark())
+        return dataclasses.replace(state, agent_state=agent_state,
+                                   learn_metrics=metrics)
+
+    def _mark(self):
+        """A recorded CUDA event while timing is on, else None."""
+        if self.spans is None:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def span_ms(self) -> dict:
+        """Mean device-clock ms per step of ``act``, ``env`` (step, reset
+        bank, statistics), ``replay_add`` and ``learn`` over the recorded
+        steps (after a synchronisation)."""
+        torch.cuda.synchronize(self.device)
+        names = ("act", "env", "replay_add", "learn")
+        tot = dict.fromkeys(names, 0.0)
+        for m in self.spans:
+            for i, name in enumerate(names):
+                tot[name] += m[i].elapsed_time(m[i + 1])
+        n = max(len(self.spans), 1)
+        return {k: v / n for k, v in tot.items()}
+
+    def _learn(self, agent_state, replay, gen, draws: StepDraws):
+        """``updates_per_step`` updates, each on a fresh uniform sample;
+        the last update's metrics."""
+        metrics = None
+        bsz = self.agent.cfg.batch_size
+        for i in range(self.tcfg.updates_per_step):
+            idx = None if draws.sample_idx is None else draws.sample_idx[i]
+            noise = None if draws.smoothing is None else draws.smoothing[i]
+            batch = self.buffer.sample(replay, bsz, gen, idx=idx)
+            agent_state, metrics = self.agent.update(
+                agent_state, batch, gen=gen, smoothing_noise=noise)
+        return agent_state, metrics
+
+    def rollout_chunk(self, state: TrainerState,
+                      draws: list | None = None) -> TrainerState:
+        """``rollout_chunk`` steps; ``draws``: one :class:`StepDraws` per
+        step, or None."""
+        for t in range(self.tcfg.rollout_chunk):
+            state = self._train_step(state, None if draws is None
+                                     else draws[t])
         return state
 
     def drain_stats(self, state: TrainerState):
@@ -197,6 +313,9 @@ class Trainer:
             "greedy_episodes": int(host[10]),
             "greedy_success_rate": float(host[11]) / max(int(host[10]), 1),
         }
+        if state.learn_metrics is not None:
+            summary.update({k: float(v)
+                            for k, v in state.learn_metrics.items()})
         fresh = dataclasses.replace(
             init_stats(self.tcfg.n_envs, self.device),
             ep_reward=s.ep_reward, ep_steps=s.ep_steps)

@@ -1,6 +1,5 @@
-"""Episode CSV logging with the reference's 8-column schema (the
-evaluation half of ``crowdnav_tpu/utils/logging.py``, which the port may
-not import).
+"""Episode CSV logging with the reference's 8-column schema (port of
+``crowdnav_tpu/utils/logging.py``, which the port may not import).
 
 `utils.record_data` (`turtlebot3_rl_sim/src/utils.py:53-64`) appends rows
 ``episode_number, success_episode, failure_episode, episode_reward,
@@ -21,19 +20,38 @@ HEADERS = ["episode_number", "success_episode", "failure_episode",
 
 
 class EpisodeLogger:
-    def __init__(self, outdir: str, filename: str):
+    def __init__(self, outdir: str, filename: str,
+                 extra_headers: list[str] | None = None):
+        """``extra_headers``: summary keys appended as columns after the
+        reference's 8 (training CSVs carry the greedy cohort's success this
+        way; evaluation CSVs keep the reference schema). A CSV written with
+        other columns gets the new header and its short rows padded."""
         os.makedirs(outdir, exist_ok=True)
+        self.extra = list(extra_headers or [])
         self.path = os.path.join(outdir, filename + ".csv")
+        want = HEADERS + self.extra
         if not os.path.isfile(self.path):
             with open(self.path, "w", newline="") as fp:
-                csv.writer(fp).writerow(HEADERS)
+                csv.writer(fp).writerow(want)
+        else:
+            with open(self.path, newline="") as fp:
+                rows = list(csv.reader(fp))
+            if rows and rows[0] != want:
+                body = [r + [""] * (len(want) - len(r)) for r in rows[1:]]
+                with open(self.path, "w", newline="") as fp:
+                    w = csv.writer(fp)
+                    w.writerow(want)
+                    w.writerows(body)
 
     def record(self, episode_number, success, failure, reward, steps,
-               ego_safety, social_safety, timelapse):
+               ego_safety=None, social_safety=None, timelapse=None,
+               extra=()):
+        row = [episode_number, success, failure, reward, steps]
+        if ego_safety is not None:
+            row += [ego_safety, social_safety, timelapse]
+        row += list(extra)
         with open(self.path, "a", newline="") as fp:
-            csv.writer(fp).writerow([episode_number, success, failure,
-                                     reward, steps, ego_safety,
-                                     social_safety, timelapse])
+            csv.writer(fp).writerow(row)
 
     def record_summary(self, summary: dict, episode_base: int,
                        timelapse: float):
@@ -46,4 +64,6 @@ class EpisodeLogger:
             round(summary["mean_steps"], 2),
             round(summary["mean_ego_safety"], 4),
             round(summary["mean_social_safety"], 4),
-            round(timelapse, 3))
+            round(timelapse, 3),
+            extra=[round(summary[k], 4) if isinstance(summary.get(k), float)
+                   else summary.get(k, "") for k in self.extra])

@@ -1,0 +1,47 @@
+"""Leaf-wise maps over dataclasses of tensors (the port's pytrees)."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def tree_map(fn, *objs):
+    """``fn`` applied leaf-wise over equal dataclasses (nested, with
+    tensor leaves); a leaf that is None stays None."""
+    first = objs[0]
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{
+            f.name: tree_map(fn, *(getattr(o, f.name) for o in objs))
+            for f in dataclasses.fields(first)})
+    if first is None:
+        return None
+    return fn(*objs)
+
+
+def tree_leaves(obj, prefix: str = ""):
+    """``[(dotted name, leaf)]`` of a nested dataclass, in field order."""
+    if dataclasses.is_dataclass(obj):
+        out = []
+        for f in dataclasses.fields(obj):
+            out += tree_leaves(getattr(obj, f.name), f"{prefix}{f.name}.")
+        return out
+    return [] if obj is None else [(prefix[:-1], obj)]
+
+
+def to_device(obj, device):
+    """A copy of ``obj`` with every tensor on ``device``: tensors, dicts,
+    tuples (named too) and lists of them, and dataclasses of tensors;
+    anything else (None, flags, generators) as it is."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to(device)
+    if isinstance(obj, dict):
+        return {k: to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        items = [to_device(v, device) for v in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") \
+            else type(obj)(items)
+    if dataclasses.is_dataclass(obj):
+        return type(obj)(**{f.name: to_device(getattr(obj, f.name), device)
+                            for f in dataclasses.fields(obj)})
+    return obj

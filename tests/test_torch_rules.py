@@ -133,5 +133,16 @@ def test_build_uses_one_exact_nvcc_call():
             text += fp.read()
     assert "use_fast_math" not in text
     assert "cpp_extension" not in text and "torch/extension.h" not in text
-    assert {s.name for s in build.sources()} == {"raycast.cu",
-                                                 "track_cp_topk.cu"}
+    assert {s.name for s in build.sources()} == {
+        "libm_trig.cu", "raycast.cu", "track_cp_topk.cu"}
+
+
+def test_trig_wrappers_send_non_cpu_tensors_to_the_kernel():
+    """``nm.cos``/``nm.sin``/``nm.atan2`` hand a tensor that is not on the
+    CPU to the C-library trig kernel's binding, never to the plain path."""
+    from crowdnav_tpu_torch.utils import numerics as nm
+    x = torch.zeros(8, device="meta")
+    for fn, args in ((nm.cos, (x,)), (nm.sin, (x,)), (nm.atan2, (x, x))):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+    assert nm.sincos.launches == 0 and nm.atan2.launches == 0
