@@ -25,8 +25,10 @@ Phases, each printing one JSON line:
    recipe) through the functions ``drivers/train`` calls: one warm-up and
    two timed chunks of 64 steps, each kernel's launches, the step's time
    split, peak memory; then the card against the CPU at 256 envs, every
-   draw made once on the CPU: env states and the replay ring bit-equal,
-   each update within the derived float32 bound
+   draw made once on the CPU: env states and the replay ring bit-equal;
+   before each step the card's learner state is set to the CPU's, and
+   every update the card's trainer makes is held to the CPU's update of
+   the same state within the derived float32 bound
    (``utils/error_bounds.py``);
 8. ``kernels``: one line with each kernel's times, bounds and launches.
 
@@ -523,7 +525,7 @@ TRAIN_FULL = TRAIN_FLAGS + [
     "--explore-eps", "1.0", "--explore-eps-min", "0.05",
     "--explore-spectrum", "--device", "cuda"]
 TRAIN_TIMED_CHUNKS = 2
-SMALL = dict(n=256, steps=3, updates=4)
+SMALL = dict(n=256, steps=2, updates=2)
 
 
 def _to_device(torch, state, dev):
@@ -605,14 +607,17 @@ def _train_full(torch):
 
 
 def _train_small(torch, dev):
-    """The card against the CPU at 256 envs: three learning steps with
-    every draw made once on the CPU, then four updates each from the CPU's
-    state held to the derived float32 bound."""
+    """The card against the CPU at 256 envs, every draw made once on the
+    CPU: env states and the replay ring bit-equal after every step; before
+    each step the card's learner state is set to the CPU's, and every
+    update the card's trainer makes is held to the CPU's update of the
+    same state, batch and noise within the derived float32 bound
+    (``utils/error_bounds.check_update``: Adam moments, parameters,
+    targets, counts)."""
     from crowdnav_tpu_torch.drivers import train as dtrain
     from crowdnav_tpu_torch.envs import world
     from crowdnav_tpu_torch.parallel.runtime import StepDraws
-    from crowdnav_tpu_torch.utils.error_bounds import (adam_step_bound,
-                                                       check_update)
+    from crowdnav_tpu_torch.utils.error_bounds import check_update
     from crowdnav_tpu_torch.utils.tree import to_device, tree_leaves
     n, cpu = SMALL["n"], torch.device("cpu")
     flags = TRAIN_FLAGS + [
@@ -623,14 +628,25 @@ def _train_small(torch, dev):
     tr_c = dtrain.build(dtrain.parser().parse_args(flags + ["--device",
                                                             "cpu"]))
     tr_g = dtrain.build(dtrain.parser().parse_args(flags + ["--device",
-                                                            "cuda"]))
+                                                            dev.type]))
     tr_g.env.template = to_device(tr_c.env.template, dev)
     agent_c, agent_g, cfg = tr_c.agent, tr_g.agent, tr_c.env.cfg
     s_c = tr_c.init(0)
     s_g = _to_device(torch, s_c, dev)
     start = s_c.agent_state
+    calls = []
+    update_g = agent_g.update
+
+    def recorded(state, batch, gen=None, smoothing_noise=None):
+        new, m = update_g(state, batch, gen=gen,
+                          smoothing_noise=smoothing_noise)
+        calls.append((state, batch, smoothing_noise, new))
+        return new, m
+
+    agent_g.update = recorded
     gen = torch.Generator().manual_seed(11)
     bsz, updates = agent_c.cfg.batch_size, SMALL["updates"]
+    shares = []
     for step in range(SMALL["steps"]):
         rows = min(int(s_c.replay.size) + n, tr_c.buffer.capacity)
         draws = StepDraws(
@@ -642,6 +658,9 @@ def _train_small(torch, dev):
                         for _ in range(updates)],
             smoothing=[torch.randn((bsz, 2), generator=gen)
                        for _ in range(updates)])
+        pre = to_device(s_c.agent_state, dev)
+        s_g = dataclasses.replace(s_g, agent_state=pre)
+        calls.clear()
         s_c = tr_c.rollout_chunk(s_c, [draws])
         s_g = tr_g.rollout_chunk(s_g, [to_device(draws, dev)])
         pairs = [("obs", s_g.obs, s_c.obs)]
@@ -653,41 +672,37 @@ def _train_small(torch, dev):
         bad = {k: v for k, v in bad.items() if v}
         if bad:
             raise AssertionError(f"card vs CPU, step {step}: {bad}")
-    n_updates = int(s_c.agent_state.update_count)
-    drift = {}
-    for name, lr in (("actor_params", agent_c.cfg.actor_lr),
-                     ("critic_params", agent_c.cfg.critic_lr)):
-        bound = 2 * sum(adam_step_bound(lr, t)
-                        for t in range(1, n_updates + 1))
-        a = getattr(s_g.agent_state, name).cpu().double()
-        b = getattr(s_c.agent_state, name).double()
-        drift[name] = float((a - b).abs().max())
-        if drift[name] > bound:
-            raise AssertionError(f"{name}: card and CPU {drift[name]} apart"
-                                 f" after {n_updates} updates, bound {bound}")
-    # each update from the CPU's state: the derived bound
-    state, shares = s_c.agent_state, []
-    rows = int(s_c.replay.size)
-    for _ in range(updates):
-        idx = torch.randint(0, rows, (bsz,), generator=gen)
-        noise = torch.randn((bsz, 2), generator=gen)
-        b_c = tr_c.buffer.sample(s_c.replay, idx=idx)
-        b_g = tr_g.buffer.sample(s_g.replay, idx=idx.to(dev))
-        if any(_n_differ(torch, x, y) for x, y in zip(b_g, b_c)):
-            raise AssertionError("card and CPU samples differ")
-        new_c, m_c = agent_c.update(state, b_c, smoothing_noise=noise)
-        new_g, _ = agent_g.update(to_device(state, dev), b_g,
-                                  smoothing_noise=noise.to(dev))
-        shares.append(check_update(agent_g, state, b_c, noise,
-                                   to_device(new_g, cpu), new_c, m_c))
-        state = new_c
-    moved = float((s_c.agent_state.actor_params
-                   - start.actor_params).abs().max())
+        if len(calls) != updates or calls[0][0] is not pre \
+                or s_g.agent_state is not calls[-1][3] \
+                or any(calls[u][0] is not calls[u - 1][3]
+                       for u in range(1, updates)):
+            raise AssertionError(f"step {step}: the card's trainer made "
+                                 f"{len(calls)} updates, not a chain of "
+                                 f"{updates} from the step's state")
+        for u, (s_in, b_g, noise_g, s_out) in enumerate(calls):
+            state = to_device(s_in, cpu)
+            b_c = tr_c.buffer.sample(s_c.replay, idx=draws.sample_idx[u])
+            noise = draws.smoothing[u]
+            if any(_n_differ(torch, x, y) for x, y in zip(b_g, b_c)) or \
+                    _n_differ(torch, noise_g, noise):
+                raise AssertionError(f"step {step} update {u}: the card "
+                                     f"did not learn from the drawn "
+                                     f"sample and noise")
+            new_c, m_c = agent_c.update(state, b_c, smoothing_noise=noise)
+            shares.append(check_update(agent_g, state, b_c, noise,
+                                       to_device(s_out, cpu), new_c, m_c))
+    moved = {name: float((getattr(s_g.agent_state, name).cpu()
+                          - getattr(start, name)).abs().max())
+             for name in ("actor_params", "critic_params")}
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"the card's learner did not move: {moved}")
     return {"envs": n, "steps": SMALL["steps"], "updates_per_step": updates,
-            "batch": bsz, "bit_equal": ["obs", "env_states", "replay"],
-            "updates_before_check": n_updates,
-            "param_drift": drift, "param_drift_bound": bound,
-            "bound_shares": shares, "actor_moved": moved}
+            "batch": bsz, "bit_equal": ["obs", "env_states", "replay",
+                                        "each update's batch and noise"],
+            "updates_checked": len(shares),
+            "max_bound_share": {k: max(sh[k] for sh in shares)
+                                for k in shares[0]},
+            "bound_shares": shares, "moved": moved}
 
 
 def phase_train(torch, dev):
@@ -812,22 +827,6 @@ def _cpu_model():
     return {"model": model, "fma": "fma" in flags, "avx2": "avx2" in flags}
 
 
-ALL_PHASES = ("step_parity", "raycast", "track_cp_topk", "libm",
-              "evaluate", "train")
-
-
-def _phases(argv):
-    """Every phase with no arguments; ``--only a,b`` runs those phases
-    (after ``device`` and ``build``) and skips the ``kernels`` line."""
-    if not argv:
-        return ALL_PHASES
-    if len(argv) != 2 or argv[0] != "--only" \
-            or not set(argv[1].split(",")) <= set(ALL_PHASES):
-        raise SystemExit(f"usage: chip_smoke.py [--only "
-                         f"{','.join(ALL_PHASES)}]")
-    return tuple(argv[1].split(","))
-
-
 KERNELS = (
     ("raycast", "crowdnav_tpu_torch/kernels/csrc/raycast.cu",
      "crowdnav_tpu/ops/lidar_pallas.py:32",
@@ -889,9 +888,8 @@ def kernel_line(smi, stats, train, evaluate):
     return kernels
 
 
-def main(argv=None):
+def main():
     t_start = time.perf_counter()
-    only = _phases(sys.argv[1:] if argv is None else argv)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -903,20 +901,12 @@ def main(argv=None):
     torch.cuda.set_device(dev)
     smi = phase_device(torch)
     first_lib = phase_build()
-    stats = {}
-    if "step_parity" in only:
-        phase_step_parity(torch, dev)
-    if "raycast" in only:
-        stats["raycast"] = phase_raycast(torch, dev, first_lib)
-    if "track_cp_topk" in only:
-        stats["track_cp_topk"] = phase_track(torch, dev, first_lib)
-    if "libm" in only:
-        stats.update(phase_libm(torch, dev))
-    evaluate = phase_evaluate(torch) if "evaluate" in only else None
-    train = phase_train(torch, dev) if "train" in only else None
-    if only != ALL_PHASES:
-        emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-        return 0
+    phase_step_parity(torch, dev)
+    stats = {"raycast": phase_raycast(torch, dev, first_lib),
+             "track_cp_topk": phase_track(torch, dev, first_lib)}
+    stats.update(phase_libm(torch, dev))
+    evaluate = phase_evaluate(torch)
+    train = phase_train(torch, dev)
     emit({"kernels": kernel_line(smi, stats, train, evaluate)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

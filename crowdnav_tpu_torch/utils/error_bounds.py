@@ -7,10 +7,13 @@ arithmetic rather than a tolerance tuned on one host.
 :class:`Bnd` is a float64 value and a bound on how far any float32
 evaluation of the same formula can lie from it; :func:`critic_grad_bound`
 and :func:`actor_grad_bound` evaluate the TD3 losses' gradients so;
-:func:`adam_step_bound` is the largest step Adam can take whatever the
-gradients; :func:`check_update` holds two results of one update, from one
-state, to what those bounds imply. The numbers are float64 on the host:
-nothing here runs on the card.
+:func:`check_update` holds two results of one update, from one state, to
+what those bounds imply through Adam's arithmetic. The numbers are
+float64 on the host: nothing here runs on the card, and nothing of the
+training path imports this module. It lives in the package, not beside
+the tests, because ``chip_smoke.py`` holds the card's learner to it on a
+machine where the script may import nothing of ``tests/``
+(``tests/test_torch_rules.py``).
 """
 from __future__ import annotations
 
@@ -272,82 +275,152 @@ def within(name, got, bnd):
     return float(ratio.max())
 
 
-def adam_step_bound(lr, count, b1=0.9, b2=0.999):
-    """max |m_hat / (sqrt(v_hat) + eps)| * lr at step ``count`` (any
-    gradients), with three roundings."""
-    t = np.arange(1, count + 1)
-    w = (1 - b1) * b1 ** (count - t) / (1 - b1 ** count)
-    v = (1 - b2) * b2 ** (count - t) / (1 - b2 ** count)
-    return lr * np.sqrt((w ** 2 / v).sum()) * (1 + 8 * U32)
-
-
-def close(name, a, b, bound):
-    """Assert |a - b| <= bound plus the two values' own rounding."""
+def close(name, a, b, bound, expect=0.0):
+    """Assert |a - b - expect| <= bound plus the two values' own rounding
+    (``expect``: the float64 difference the two should have); the largest
+    share of that limit used."""
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
-    slack = 2 * U32 * (np.abs(a) + np.abs(b))
-    d = np.abs(a - b)
-    if not (d <= bound + slack).all():
+    lim = bound + 2 * U32 * (np.abs(a) + np.abs(b))
+    d = np.abs(a - b - expect)
+    if not (d <= lim).all():
         raise AssertionError(
-            f"{name}: {float((d / (bound + slack)).max())} of its bound")
-
-
+            f"{name}: {float((d / np.maximum(lim, 1e-300)).max())} of its "
+            f"bound")
+    return float((d / np.maximum(lim, 1e-300)).max())
 
 
 def _np(t):
     return np.asarray(t.detach().cpu().double().numpy())
 
 
+def _f(x):
+    return float(np.float32(x))
+
+
+def moment_bounds(tx, grad, e, mu0, nu0):
+    """Bounds on |mu_a - mu_b| and |nu_a - nu_b| of two float32 Adam steps
+    from the same moments ``mu0``, ``nu0`` whose gradients both lie within
+    ``e`` of ``grad`` (float64): (1 - b) times the gradient terms'
+    difference, plus the products' roundings on each side."""
+    c1, c2 = _f(1 - tx.b1), _f(1 - tx.b2)
+    mag = np.abs(grad) + e
+    mu = c1 * 2 * e + 2 * U32 * (c1 * mag + _f(tx.b1) * np.abs(mu0))
+    nu = (c2 * 2 * e * 2 * mag
+          + 2 * U32 * (2 * c2 * mag * mag + _f(tx.b2) * np.abs(nu0)))
+    return mu, nu
+
+
+def adam_ratio(tx, mu, nu, count):
+    """m_hat / (sqrt(v_hat) + eps) in float64 from float32 moments, with
+    the float32 bias corrections ``1 - powf(b, count)`` that both
+    frameworks use (``agents/optim.bias_correction``)."""
+    from crowdnav_tpu_torch.agents.optim import bias_correction
+    t = torch.tensor(count, dtype=torch.int32)
+    c1 = float(bias_correction(tx.b1, t))
+    c2 = float(bias_correction(tx.b2, t))
+    return (mu / c1) / (np.sqrt(nu / c2) + _f(tx.eps))
+
+
+def param_diff(tx, new_a, new_b, opt):
+    """``(expect, bound)`` for p_a - p_b of two float32 Adam steps from the
+    same parameters, given each side's own new moments: the difference is
+    -lr times the float64 difference of their steps m_hat / (sqrt(v_hat) +
+    eps), within 8u of each step (the float32 evaluation of a step from
+    its moments rounds six times: two divisions by the bias corrections,
+    the square root, the sum with eps, the division, the product with -lr:
+    5.5u), and within the sums' own rounding (:func:`close`)."""
+    oa, ob = getattr(new_a, opt), getattr(new_b, opt)
+    count = int(ob.count)
+    ra = adam_ratio(tx, _np(oa.mu), _np(oa.nu), count)
+    rb = adam_ratio(tx, _np(ob.mu), _np(ob.nu), count)
+    lr = _f(tx.lr)
+    return -lr * (ra - rb), 8 * U32 * lr * (np.abs(ra) + np.abs(rb))
+
+
 def check_update(agent, state, batch, noise, new_a, new_b, metrics_b=None):
     """Hold two float32 results ``new_a`` and ``new_b`` of one TD3 update
     from the same ``state`` (CPU tensors), batch and smoothing noise to
-    the derived bounds: the critic's Adam moments move by (1 - b) times
-    gradients that each lie within the critic gradient's bound; the
-    actor's moments by (1 - b) times gradients bounded under ``new_b``'s
-    critic, which ``new_a``'s lies within 2 lr A_t of; a parameter
-    differs by at most 2 lr A_t (:func:`adam_step_bound`), a target by tau times that on a policy
-    update and not at all otherwise; counts are equal. ``metrics_b``:
-    ``new_b``'s metrics, held to their bounds. Returns the largest shares
-    of the gradient bounds used by ``agent``'s own evaluation of the
-    gradients from ``state`` on its device."""
+    the derived bounds, and return the largest share of each bound used.
+
+    The critics' gradients both lie within their bound around a float64
+    evaluation (:func:`critic_grad_bound`), so each Adam moment moves by
+    (1 - b) times gradients that close (:func:`moment_bounds`); the
+    actor's gradient is bounded the same way under ``new_b``'s critic with
+    ``new_a``'s critic at its actual distance from it
+    (:func:`actor_grad_bound`), and is zero on a non-policy update. Each
+    parameter vector lies within lr times the difference of the two sides'
+    own Adam steps, recomputed in float64 from their moments, to within
+    the steps' rounding (:func:`param_diff`); the targets' difference
+    equals tau times the parameters' actual difference to within the
+    rounding of the soft update on a policy update, and is zero otherwise;
+    counts are equal. ``metrics_b``: ``new_b``'s metrics, held to their bounds.
+    The shares ``critic_grad`` and ``actor_grad`` are those of ``agent``'s
+    own gradients from ``state``, evaluated on its device."""
     cfg = agent.cfg
+    ctx, atx = agent.critic_tx, agent.actor_tx
     b = [_np(x) for x in batch]
     loss_b, y_b, cg_b = critic_grad_bound(agent, state, b, _np(noise))
-    count = int(state.critic_opt.count) + 1
-    step_c = adam_step_bound(cfg.critic_lr, count)
-    step_a = adam_step_bound(cfg.actor_lr, int(state.actor_opt.count) + 1)
-    close("critic mu", _np(new_a.critic_opt.mu), _np(new_b.critic_opt.mu),
-          (1 - 0.9) * 2 * cg_b.e)
-    close("critic nu", _np(new_a.critic_opt.nu), _np(new_b.critic_opt.nu),
-          (1 - 0.999) * 2 * cg_b.mag * 2 * cg_b.e)
-    close("critic params", _np(new_a.critic_params),
-          _np(new_b.critic_params), 2 * step_c)
+    for opt in ("actor_opt", "critic_opt"):
+        ca, cb = (int(getattr(s, opt).count) for s in (new_a, new_b))
+        if not ca == cb == int(getattr(state, opt).count) + 1:
+            raise AssertionError(f"{opt}.count")
+    if not (int(new_a.update_count) == int(new_b.update_count)
+            == int(state.update_count) + 1):
+        raise AssertionError("update_count")
+    shares = {}
+    mu_c, nu_c = moment_bounds(ctx, cg_b.v, cg_b.e, _np(state.critic_opt.mu),
+                               _np(state.critic_opt.nu))
+    shares["critic_mu"] = close("critic mu", _np(new_a.critic_opt.mu),
+                                _np(new_b.critic_opt.mu), mu_c)
+    shares["critic_nu"] = close("critic nu", _np(new_a.critic_opt.nu),
+                                _np(new_b.critic_opt.nu), nu_c)
+    expect, bound = param_diff(ctx, new_a, new_b, "critic_opt")
+    shares["critic_params"] = close(
+        "critic params", _np(new_a.critic_params), _np(new_b.critic_params),
+        bound, expect)
+    crit_a = _np(new_a.critic_params)
     crit_b = new_b.critic_params.detach().cpu()
-    crit_err = 2 * step_c + 2 * U32 * np.abs(_np(crit_b))
     # the actor's gradient under new_b's critic: exactly those float32
-    # values (for agent's own gradient and new_b's metric), and within
-    # 2 lr A_t of them (new_a's update used its own critic)
+    # values (for agent's own gradient and new_b's metric), and with the
+    # critic anywhere within its actual distance from new_a's (whose
+    # critic new_a's actor step used)
+    crit_err = np.abs(crit_a - _np(crit_b))
     a_loss_b, ag_b = actor_grad_bound(agent, state.actor_params.cpu(),
                                       crit_b, np.zeros_like(crit_err), b[0])
     _, ag_far = actor_grad_bound(agent, state.actor_params.cpu(), crit_b,
                                  crit_err, b[0])
     policy = int(state.update_count) % cfg.policy_update == 0
-    close("actor mu", _np(new_a.actor_opt.mu), _np(new_b.actor_opt.mu),
-          (1 - 0.9) * 2 * ag_far.e if policy else 0.0)
-    close("actor params", _np(new_a.actor_params), _np(new_b.actor_params),
-          2 * step_a)
-    for name, step in (("actor_target", step_a), ("critic_target", step_c)):
+    if policy:
+        mu_a, nu_a = moment_bounds(atx, ag_far.v, ag_far.e,
+                                   _np(state.actor_opt.mu),
+                                   _np(state.actor_opt.nu))
+    else:
+        mu_a = nu_a = 0.0
+    shares["actor_mu"] = close("actor mu", _np(new_a.actor_opt.mu),
+                               _np(new_b.actor_opt.mu), mu_a)
+    shares["actor_nu"] = close("actor nu", _np(new_a.actor_opt.nu),
+                               _np(new_b.actor_opt.nu), nu_a)
+    expect, bound = param_diff(atx, new_a, new_b, "actor_opt")
+    shares["actor_params"] = close(
+        "actor params", _np(new_a.actor_params), _np(new_b.actor_params),
+        bound, expect)
+    tau = _f(cfg.tau)
+    for name, online in (("actor_target", "actor_params"),
+                         ("critic_target", "critic_params")):
         a, bb = _np(getattr(new_a, name)), _np(getattr(new_b, name))
         if policy:
-            close(name, a, bb, cfg.tau * 2 * step)
-        elif not np.array_equal(a, bb):
+            pa, pb = _np(getattr(new_a, online)), _np(getattr(new_b, online))
+            t0 = np.abs(_np(getattr(state, name)))
+            shares[name] = close(
+                name, a, bb,
+                2 * U32 * (2 * t0 + tau * (np.abs(pa) + np.abs(pb))),
+                tau * (pa - pb))
+        elif not np.array_equal(a, bb) or not np.array_equal(
+                a, _np(getattr(state, name))):
             raise AssertionError(f"{name} moved on a non-policy update")
-    for name in ("update_count",):
-        if int(getattr(new_a, name)) != int(getattr(new_b, name)):
-            raise AssertionError(name)
-    for opt in ("actor_opt", "critic_opt"):
-        if int(getattr(new_a, opt).count) != int(getattr(new_b, opt).count):
-            raise AssertionError(f"{opt}.count")
+        else:
+            shares[name] = 0.0
     if metrics_b is not None:
         within("critic_loss", _np(metrics_b["critic_loss"]), loss_b)
         within("q_target_mean", _np(metrics_b["q_target_mean"]),
@@ -362,5 +435,6 @@ def check_update(agent, state, batch, noise, new_a, new_b, metrics_b=None):
     y = agent.td_target(st, batch, noise.to(dev))
     _, c_grad = agent.critic_grad(st.critic_params, obs, batch[1], y)
     _, a_grad = agent.actor_grad(st.actor_params, crit_b.to(dev), obs)
-    return {"critic_grad": within("critic grad", _np(c_grad), cg_b),
-            "actor_grad": within("actor grad", _np(a_grad), ag_b)}
+    shares["critic_grad"] = within("critic grad", _np(c_grad), cg_b)
+    shares["actor_grad"] = within("actor grad", _np(a_grad), ag_b)
+    return shares

@@ -20,12 +20,12 @@ library's sigmoid/tanh, the full gradient where a ReLU may switch, the
 float64 evaluation's own error; u = 2^-24). Each update starts from the
 JAX state of the previous one (so differences do not compound) and the
 rest of its outputs are held to what those gradient bounds imply through
-Adam's algebra: a moment moves by (1 - b) times its gradient term; a
-parameter by at most lr * A_t per step, A_t = sqrt(sum_i w_i^2 / v_i)
-with Adam's bias-corrected weights w_i, v_i of step i (Cauchy-Schwarz on
-m_hat / sqrt(v_hat)), so two evaluations differ by at most 2 lr A_t; a
-target by tau times that. Counts, ``update_count`` and non-policy targets
-are exact."""
+Adam's arithmetic: a moment moves by (1 - b) times its gradient term
+(plus the products' roundings); the parameters lie within lr times the
+float64 difference of the two sides' steps m_hat / (sqrt(v_hat) + eps),
+recomputed from their own moments, plus 8u of each step; a target within
+tau times the parameters' actual difference. Counts, ``update_count`` and
+non-policy targets are exact."""
 import dataclasses
 import importlib.util
 import os
@@ -76,6 +76,31 @@ def _agents(**kw):
 def to_port(tagent, jstate):
     arrays = export_module().state_arrays(jax.tree.map(np.asarray, jstate))
     return convert.td3_state_from_arrays(tagent, arrays)
+
+
+def to_jax(tagent, tstate, jtemplate):
+    """The port's ``TD3State`` as a JAX ``TD3State`` of ``jtemplate``'s
+    structure and dtypes (the inverse of :func:`to_port`)."""
+    arrays = convert.td3_state_to_arrays(tagent, tstate)
+
+    def tree(t, prefix):
+        return {k: tree(v, f"{prefix}/{k}") if isinstance(v, dict)
+                else jnp.asarray(arrays[f"{prefix}/{k}"], v.dtype)
+                for k, v in t.items()}
+
+    kw = {f: {"params": tree(getattr(jtemplate, f)["params"], f)}
+          for f in ("actor_params", "actor_target", "critic_params",
+                    "critic_target")}
+    for f in ("actor_opt", "critic_opt"):
+        opt = getattr(jtemplate, f)
+        adam = opt[0]._replace(
+            count=jnp.asarray(arrays[f"{f}/count"], opt[0].count.dtype),
+            mu={"params": tree(opt[0].mu["params"], f"{f}/mu")},
+            nu={"params": tree(opt[0].nu["params"], f"{f}/nu")})
+        kw[f] = (adam,) + tuple(opt[1:])
+    for f in ("update_count", "explore_sigma", "explore_eps"):
+        kw[f] = jnp.asarray(arrays[f], getattr(jtemplate, f).dtype)
+    return jtemplate.replace(**kw)
 
 
 def _batch(rng, n=BATCH):
@@ -276,6 +301,11 @@ def test_td3_state_conversion_round_trips():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
     assert int(tstate.update_count) == 1
     assert int(tstate.actor_opt.count) == int(tstate.critic_opt.count) == 1
+    jback = to_jax(tagent, tstate, jstate)
+    assert jax.tree.structure(jback) == jax.tree.structure(jstate)
+    for a, b in zip(jax.tree.leaves(jback), jax.tree.leaves(jstate)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 # ---- the update, within the derived bound ----
@@ -317,7 +347,8 @@ def test_update_is_within_the_derived_bound():
                                    to_port(tagent, new_j), jmetrics))
         assert int(new_t.update_count) == step + 1
         jstate = new_j
-    assert max(max(s.values()) for s in shares) < 0.5, shares
+    grads = [s[k] for s in shares for k in ("critic_grad", "actor_grad")]
+    assert max(grads) < 0.5, shares
 
 
 def test_update_is_its_documented_composition():
