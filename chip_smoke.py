@@ -10,7 +10,9 @@ Phases, each printing one JSON line:
    and beside it, started together, the build of the kernels' first designs
    (``scripts/first_design_kernels/``), kept as a timing baseline;
 3. ``raycast``: the raycast kernel against its plain version on the card,
-   then its device time at 1,024 and 16,384 envs;
+   at the shapes of every path (14 pedestrians; the placeholder of an
+   empty room; 6 on ``crowd_sparse``; 20 in the 5 m room of ``test_20``),
+   then its device time at each;
 4. ``track_cp_topk``: the tracker -> CP -> top-K kernel against its plain
    version, on random populations and edge cases (also at K = 1 and at
    sizes the kernel takes at run time), then its device time;
@@ -30,18 +32,30 @@ Phases, each printing one JSON line:
    every update the card's trainer makes is held to the CPU's update of
    the same state within the derived float32 bound
    (``utils/error_bounds.py``);
-8. ``kernels``: one line with each kernel's times, bounds and launches.
+8. ``train_agents``: DDPG, SAC and DQN the same way, each at the widths of
+   its JAX record (DDPG 2,048 envs x 16 updates x batch 1,024 on
+   ``crowd_dense``; SAC and DQN 512 envs x 32 updates x batch 64 on the
+   simple env), then the card against the CPU at 64 envs;
+9. ``evaluate_agents``: greedy evaluation of the three committed policies
+   (``crowdnav_tpu_torch/assets/``) through ``drivers/evaluate``, 256 envs
+   x 500 steps, each Wilson 95% interval held to overlap its JAX record's;
+10. ``kernels``: one line with each kernel's times, bounds and launches on
+   every path.
 
 Before them, ``step_parity`` holds the env step on the card against the
 step on the CPU: 1,024 envs x 50 steps of ``crowd_dense``/``crowd`` with
-the ``final_full`` actor's greedy actions, both sides stepped from the same
-CPU state every step, every observation and state element bit-equal.
+the ``final_full`` actor's greedy actions, and 1,024 envs x 60 steps of
+``SimpleEnv`` on ``crowd_sparse``/``random`` in each action mode, both
+sides stepped from the same CPU state every step, every observation and
+state element bit-equal.
 
 Kernel times are device time alone (``kernels/timing.py``): a burst of
 wrapper calls queued behind ``torch.cuda._sleep``, over input copies that
 keep each launch's bytes out of the L2 cache, at 1,024 envs (the evaluate
 path) and 16,384 envs (the training batch of ``bench.py``). ``ms`` and
-``bound_ms`` are at 16,384 envs; ``launches`` counts the training run.
+``bound_ms`` are at 16,384 envs; ``launches`` counts the TD3 training
+run, ``launches_evaluate`` the TD3 evaluation, ``launches_train_<algo>``
+and ``launches_evaluate_<algo>`` the other learners' runs.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; without a CUDA device it fails at once.
@@ -59,8 +73,12 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
+
 N_BIG = 16384
 N_ODD = 1000
+AGENT_ENVS = 512        # SAC and DQN (results/r2/README.md:3-5)
+EVAL_20_ENVS = 512      # suites 20 and hard (scripts/r5_chain_t.txt:6-7)
 EVAL_ENVS = 1024
 EVAL_STEPS = 500
 SHAPES = (EVAL_ENVS, N_BIG)
@@ -221,22 +239,37 @@ def phase_raycast(torch, dev, first_lib):
                            u((N_BIG,), -math.pi, math.pi),
                            torch.full((N_BIG, 1, 2), 1e3, device=dev)),
              "n1000_p14": population(N_ODD, 14),
-             "n1024_p14": population(EVAL_ENVS, 14)}
+             "n1024_p14": population(EVAL_ENVS, 14),
+             # SAC and DQN on crowd_sparse
+             "n512_p6": population(AGENT_ENVS, 6),
+             "n16384_p6": population(N_BIG, 6)}
+    # suite 20 and the test_20 rows of suite hard: the 5 m room (inner
+    # half 2.45 m), 20 pedestrians
+    big = make_config("test_20", "random_20")
+    hb = big.room_half_inner - big.robot_radius
+    for n in (EVAL_20_ENVS, N_BIG):
+        cases[f"n{n}_p20_room5"] = (u((n, 2), -hb, hb),
+                                    u((n,), -math.pi, math.pi),
+                                    u((n, 20, 2), -hb, hb))
+    case_cfg = {name: big if name.endswith("room5") else cfg
+                for name in cases}
     consts = dict(ped_radius=cfg.ped_radius, room_half=h,
                   max_range=cfg.max_scan_range,
                   min_range=cfg.lidar_min_range, n_scans=cfg.n_scans)
     ca, sa = lidar.beam_tables(cfg.n_scans, dev)
 
-    def plain_args(pos, yaw, peds):
+    def plain_args(pos, yaw, peds, c=cfg):
         # the yaw terms as scan_batch computes them (the C library's trig)
         return (pos, nm.cos(yaw), nm.sin(yaw), ca, sa, peds,
-                nm.f32(h), nm.f32(cfg.ped_radius ** 2),
-                nm.f32(cfg.lidar_min_range), nm.f32(cfg.max_scan_range))
+                nm.f32(c.room_half_inner), nm.f32(c.ped_radius ** 2),
+                nm.f32(c.lidar_min_range), nm.f32(c.max_scan_range))
 
     result = {}
     for name, (pos, yaw, peds) in cases.items():
-        got = lidar.scan_batch(pos, yaw, peds, **consts)
-        ref = lidar.raycast_plain(*plain_args(pos, yaw, peds))
+        c = case_cfg[name]
+        got = lidar.scan_batch(pos, yaw, peds, **dict(
+            consts, room_half=c.room_half_inner))
+        ref = lidar.raycast_plain(*plain_args(pos, yaw, peds, c))
         torch.cuda.synchronize()
         raw = _max_abs(got, ref, torch)
         rounded_equal = bool(torch.equal(nm.round3(got), nm.round3(ref)))
@@ -250,17 +283,22 @@ def phase_raycast(torch, dev, first_lib):
         return first_design_raycast(torch, first_lib, *a)
 
     shapes = {}
-    for n, case in ((EVAL_ENVS, "n1024_p14"), (N_BIG, "n16384_p14")):
-        args = plain_args(*cases[case])
+    for key, case in ((EVAL_ENVS, "n1024_p14"), (N_BIG, "n16384_p14"),
+                      ("n512_p6", "n512_p6"), ("n16384_p6", "n16384_p6"),
+                      (f"n{EVAL_20_ENVS}_p20_room5",
+                       f"n{EVAL_20_ENVS}_p20_room5"),
+                      ("n16384_p20_room5", "n16384_p20_room5")):
+        args = plain_args(*cases[case], case_cfg[case])
         if not torch.equal(build.raycast(*args), first(*args)):
             raise AssertionError(f"raycast {case}: the first design differs")
+        n, p = cases[case][2].shape[:2]
         hits = roofline.raycast_hits(*args[:6], args[7])
-        nbytes, ops = roofline.raycast_work(n, cfg.n_scans, 14, hits)
+        nbytes, ops = roofline.raycast_work(n, cfg.n_scans, p, hits)
         bound, bound_by = roofline.bound_ms(nbytes, ops)
-        shapes[n] = dict(_timings(build.raycast, first, lidar.raycast_plain,
-                                  args, args, nbytes),
-                         bound_ms=bound, bound_by=bound_by, bytes=nbytes,
-                         ops=ops, hits=hits)
+        shapes[key] = dict(_timings(build.raycast, first,
+                                    lidar.raycast_plain, args, args, nbytes),
+                           bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                           ops=ops, hits=hits)
     emit({"phase": "raycast", "cases": result, "timing": TIMING,
           "shapes": shapes})
     return {"max_abs": max(r["max_abs_diff"] for r in result.values()),
@@ -712,8 +750,302 @@ def phase_train(torch, dev):
     return full
 
 
+# the other learners at the widths of their JAX records: DDPG as
+# results/r3/chain4.log:1 (float32 replay, as that command passes no
+# --replay-obs-dtype), SAC and DQN as results/r2/README.md:3-5 on the
+# simple env with their configs' batch of 64
+AGENT_FLAGS = {
+    "ddpg": ["--algo", "ddpg", "--world", "crowd_dense", "--behavior",
+             "crowd", "--n-envs", "2048", "--chunk", "64",
+             "--updates-per-step", "16", "--batch-size", "1024",
+             "--learn-start", "16384", "--jitter", "1.0", "--explore-eps",
+             "1.0", "--explore-eps-min", "0.05", "--explore-spectrum",
+             "--seed", "0"],
+    "sac": ["--algo", "sac", "--world", "crowd_sparse", "--behavior",
+            "random", "--n-envs", str(AGENT_ENVS), "--chunk", "64",
+            "--updates-per-step", "32", "--jitter", "1.0", "--seed", "0"],
+    "dqn": ["--algo", "dqn", "--world", "crowd_sparse", "--behavior",
+            "random", "--n-envs", str(AGENT_ENVS), "--chunk", "64",
+            "--updates-per-step", "32", "--jitter", "1.0", "--seed", "0"]}
+AGENT_SMALL = dict(n=64, steps=2, updates=2)
+# each committed policy, its record (episodes, successes) and suite
+ASSETS = os.path.join(ROOT, "crowdnav_tpu_torch", "assets")
+AGENT_EVAL = {
+    "ddpg": (["--checkpoint", os.path.join(ASSETS, "ddpg_peak"),
+              "--checkpoint-step", "1572864"], "train", (921, 1123),
+             "results/r3/ddpg_spectrum/ddpg_training_test.csv"),
+    "sac": (["--checkpoint", os.path.join(ASSETS, "sac_actor.npz")],
+            "train_sparse", (656, 758),
+            "results/r2/sac/sac_training_test.csv"),
+    "dqn": (["--checkpoint", os.path.join(ASSETS, "dqn_qnet.npz")],
+            "train_sparse", (777, 847),
+            "results/r2/dqn/dqn_training_test.csv")}
+AGENT_EVAL_ENVS = 256     # the JAX evaluate driver's defaults
+SIMPLE_KERNELS = ("raycast", "libm_sincos", "libm_atan2")
+
+
+def _path_kernels(algo):
+    """The kernels a path launches: the tracker only on the risk env."""
+    return tuple(_read_launches()) if algo in ("td3", "ddpg") \
+        else SIMPLE_KERNELS
+
+
+def _train_agent(torch, algo):
+    """One learner's training path through the functions ``drivers/train``
+    calls: a warm-up chunk, then two timed chunks with the launch counts
+    and the step's time split."""
+    from crowdnav_tpu_torch.drivers import train as dtrain
+    args = dtrain.parser().parse_args(AGENT_FLAGS[algo] + ["--device",
+                                                           "cuda"])
+    trainer = dtrain.build(args)
+    tc, agent = trainer.tcfg, trainer.agent
+    t0 = time.perf_counter()
+    state = trainer.init(args.seed)
+    state = trainer.rollout_chunk(state)
+    _, state = trainer.drain_stats(state)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    field = "params" if algo == "dqn" else "actor_params"
+    before = getattr(state.agent_state, field).clone()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.spans = []
+    _reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_CHUNKS):
+        state = trainer.rollout_chunk(state)
+        if hasattr(agent, "decay_epsilon"):
+            state = dataclasses.replace(
+                state, agent_state=agent.decay_epsilon(state.agent_state))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    split = trainer.span_ms()
+    trainer.spans = None
+    summary, state = trainer.drain_stats(state)
+    steps = TRAIN_TIMED_CHUNKS * tc.rollout_chunk
+    metrics = {k: summary[k] for k in agent.METRICS}
+    out = {"flags": " ".join(AGENT_FLAGS[algo]), "envs": tc.n_envs,
+           "timed_steps": steps, "updates_per_step": tc.updates_per_step,
+           "batch": agent.cfg.batch_size, "warmup_chunk_s": warm_s,
+           "timed_wall_s": wall, "env_steps_per_s": steps * tc.n_envs / wall,
+           "wall_ms_per_step": wall * 1e3 / steps,
+           "device_ms_per_step": split, "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "replay_size": int(state.replay.size),
+           "learn_metrics": metrics, "episodes": summary["episodes"],
+           "success_rate": summary["success_rate"],
+           "moved": float((getattr(state.agent_state, field)
+                           - before).abs().max())}
+    for name in _path_kernels(algo):
+        if launches[name] < steps:
+            raise AssertionError(f"{algo}: {name} launched {launches[name]}"
+                                 f" times in {steps} env steps")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{algo}: losses not finite: {metrics}")
+    if not out["moved"] > 0:
+        raise AssertionError(f"{algo}: the learner did not move")
+    return out
+
+
+def _agent_vs_cpu(torch, dev, algo):
+    """The card against the CPU at 64 envs, every draw made once on the
+    CPU: env states and the replay ring bit-equal after every step; before
+    each step the card's learner state is set to the CPU's, and every
+    update the card's trainer makes is held to the CPU's update of the
+    same state, batch and draws (``utils/error_bounds.check_update``).
+    DDPG explores with epsilon 1 and DQN starts at epsilon 1, so their
+    actions are the drawn ones on both devices; SAC's action passes
+    through its networks, so the card's act is held within the derived
+    bound of the CPU's and the card's step takes the CPU's action."""
+    from crowdnav_tpu_torch.drivers import train as dtrain
+    from crowdnav_tpu_torch.envs import world
+    from crowdnav_tpu_torch.parallel.runtime import StepDraws
+    from crowdnav_tpu_torch.utils import error_bounds as eb
+    from crowdnav_tpu_torch.utils.tree import to_device, tree_leaves
+    n, cpu = AGENT_SMALL["n"], torch.device("cpu")
+    base = [f for f in AGENT_FLAGS[algo]]
+    for flag in ("--n-envs", "--chunk", "--updates-per-step",
+                 "--batch-size", "--learn-start", "--explore-eps-min"):
+        if flag in base:
+            i = base.index(flag)
+            del base[i:i + 2]
+    base = [f for f in base if f != "--explore-spectrum"]
+    flags = base + [
+        "--n-envs", str(n), "--chunk", "1", "--updates-per-step",
+        str(AGENT_SMALL["updates"]), "--batch-size", str(n),
+        "--learn-start", str(n), "--reset-bank", str(n), "--buffer-size",
+        str(4 * n)]
+    tr_c = dtrain.build(dtrain.parser().parse_args(flags + ["--device",
+                                                            "cpu"]))
+    tr_g = dtrain.build(dtrain.parser().parse_args(flags + ["--device",
+                                                            dev.type]))
+    tr_g.env.template = to_device(tr_c.env.template, dev)
+    agent_c, agent_g, cfg = tr_c.agent, tr_g.agent, tr_c.env.cfg
+    s_c = tr_c.init(0)
+    s_g = _to_device(torch, s_c, dev)
+    calls, acted = [], []
+    update_g, act_c, act_g = agent_g.update, agent_c.act, agent_g.act
+
+    def recorded(state, batch, gen=None, **kw):
+        new, m = update_g(state, batch, gen=gen, **kw)
+        calls.append((state, batch, kw.get("noise"), new))
+        return new, m
+
+    def act_cpu(obs, explore=False, state=None, gen=None, draws=None):
+        out = act_c(obs, explore, state, gen, draws)
+        acted.append((obs, state, draws, out))
+        return out
+
+    act_shares = []
+
+    def act_card(obs, explore=False, state=None, gen=None, draws=None):
+        out = act_g(obs, explore, state, gen, draws)
+        obs_c, state_c, draws_c, out_c = acted[-1]
+        fw = eb.sac_sample_bound(agent_c, eb._bparams(
+            agent_c, "actor", state_c.actor_params), obs_c.numpy(),
+            draws_c.numpy())
+        box = eb.bclip(fw["action"], np.array([0.0, -2.0]),
+                       np.array([0.22, 2.0]))
+        act_shares.append(eb.within("sac act (card)", out.cpu().numpy(),
+                                    box))
+        return out_c.to(dev)
+
+    agent_g.update = recorded
+    if algo == "sac":
+        agent_c.act, agent_g.act = act_cpu, act_card
+    gen = torch.Generator().manual_seed(11)
+    bsz, updates = agent_c.cfg.batch_size, AGENT_SMALL["updates"]
+    own = agent_c.UPDATE_DRAW
+    shares = []
+    for step in range(AGENT_SMALL["steps"]):
+        rows = min(int(s_c.replay.size) + n, tr_c.buffer.capacity)
+        vel = world.random_velocities(cfg, s_c.env_states.ped_pos.shape,
+                                      gen, cpu)
+        draws = StepDraws(
+            act=agent_c.exploration_draws(n, gen),
+            bank_idx=torch.randint(0, n, (n,), generator=gen), vel=vel,
+            sample_idx=[torch.randint(0, rows, (bsz,), generator=gen)
+                        for _ in range(updates)],
+            sac_noise=[torch.randn((bsz, 2), generator=gen)
+                       for _ in range(updates)] if algo == "sac" else None)
+        pre = to_device(s_c.agent_state, dev)
+        s_g = dataclasses.replace(s_g, agent_state=pre)
+        calls.clear()
+        s_c = tr_c.rollout_chunk(s_c, [draws])
+        s_g = tr_g.rollout_chunk(s_g, [to_device(draws, dev)])
+        pairs = [("obs", s_g.obs, s_c.obs)]
+        pairs += [(f"state.{k}", g, c) for (k, g), (_, c) in zip(
+            tree_leaves(s_g.env_states), tree_leaves(s_c.env_states))]
+        pairs += [(f"replay.{k}", g, c) for (k, g), (_, c) in zip(
+            tree_leaves(s_g.replay), tree_leaves(s_c.replay))]
+        if algo == "ddpg":
+            pairs.append(("ou_state", s_g.agent_state.ou_state,
+                          s_c.agent_state.ou_state))
+        bad = {k: _n_differ(torch, g, c) for k, g, c in pairs}
+        bad = {k: v for k, v in bad.items() if v}
+        if bad:
+            raise AssertionError(f"{algo} card vs CPU, step {step}: {bad}")
+        if len(calls) != updates:
+            raise AssertionError(f"{algo} step {step}: {len(calls)} updates")
+        for u, (s_in, b_g, noise_g, s_out) in enumerate(calls):
+            state = to_device(s_in, cpu)
+            b_c = tr_c.buffer.sample(s_c.replay, idx=draws.sample_idx[u])
+            kw, noise = {}, None
+            if own is not None:
+                noise = getattr(draws, own[0])[u]
+                kw[own[1]] = noise
+                if _n_differ(torch, noise_g, noise):
+                    raise AssertionError(f"{algo}: the card's update noise")
+            if any(_n_differ(torch, x, y) for x, y in zip(b_g, b_c)):
+                raise AssertionError(f"{algo} step {step} update {u}: the "
+                                     f"card did not learn from the sample")
+            new_c, m_c = agent_c.update(state, b_c, **kw)
+            shares.append(eb.check_update(agent_g, state, b_c, noise,
+                                          to_device(s_out, cpu), new_c,
+                                          m_c))
+    out = {"envs": n, "steps": AGENT_SMALL["steps"],
+           "updates_per_step": updates, "batch": bsz,
+           "bit_equal": ["obs", "env_states", "replay",
+                         "each update's batch and draws"],
+           "updates_checked": len(shares),
+           "max_bound_share": {k: max(sh[k] for sh in shares)
+                               for k in shares[0]}}
+    if act_shares:
+        out["sac_act_bound_share"] = max(act_shares)
+    return out
+
+
+def phase_train_agents(torch, dev):
+    """DDPG, SAC and DQN: each learner's training path at the widths of
+    its JAX record, then the card against the CPU."""
+    result = {}
+    for algo in ("ddpg", "sac", "dqn"):
+        t0 = time.perf_counter()
+        full = _train_agent(torch, algo)
+        small = _agent_vs_cpu(torch, dev, algo)
+        result[algo] = {"full": full, "card_vs_cpu": small,
+                        "seconds": time.perf_counter() - t0}
+        emit({"phase": "train_agents", "algo": algo, **result[algo]})
+    return {algo: r["full"]["launches"] for algo, r in result.items()}
+
+
+def _overlap(a, b):
+    return a[0] <= b[1] and b[0] <= a[1]
+
+
+def phase_evaluate_agents(torch):
+    """Greedy evaluation of the three committed policies through
+    ``drivers/evaluate`` (256 envs x 500 steps, jitter 1.0, seed 0: the
+    JAX driver's defaults), against the JAX records: the port's Wilson
+    95% interval must overlap the record's."""
+    from crowdnav_tpu_torch.drivers import evaluate
+    launches, rows = {}, {}
+    for algo, (ckpt, suite, record, source) in AGENT_EVAL.items():
+        with tempfile.TemporaryDirectory() as out:
+            _reset_launches()
+            t0 = time.perf_counter()
+            results = evaluate.main(
+                ["--algo", algo, "--suite", suite, *ckpt, "--n-envs",
+                 str(AGENT_EVAL_ENVS), "--max-steps", str(EVAL_STEPS),
+                 "--jitter", "1.0", "--seed", "0", "--outdir", out,
+                 "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[algo] = _read_launches()
+        s = results[0]
+        port = wilson(s["successes"], s["episodes"])
+        rec = wilson(*record)
+        rows[algo] = {"suite": suite, "scenario": s["scenario"],
+                      "episodes": s["episodes"],
+                      "successes": s["successes"],
+                      "success_rate": s["success_rate"], "wilson95": port,
+                      "jax_record": {"successes": record[0],
+                                     "episodes": record[1],
+                                     "success_rate": record[0] / record[1],
+                                     "wilson95": rec, "source": source},
+                      "overlap": _overlap(port, rec),
+                      "mean_reward": s["mean_reward"],
+                      "mean_steps": s["mean_steps"],
+                      "rollout_s": s["timelapse"], "wall_s": wall,
+                      "env_steps_per_s": AGENT_EVAL_ENVS * EVAL_STEPS
+                      / s["timelapse"], "launches": launches[algo]}
+        for name in _path_kernels(algo):
+            if launches[algo][name] < EVAL_STEPS:
+                raise AssertionError(f"{algo} evaluate: {name} launched "
+                                     f"{launches[algo][name]} times")
+    emit({"phase": "evaluate_agents", "envs": AGENT_EVAL_ENVS,
+          "steps": EVAL_STEPS, "agents": rows})
+    bad = [a for a, r in rows.items() if not r["overlap"]]
+    if bad:
+        raise AssertionError(f"Wilson intervals do not overlap the JAX "
+                             f"records: {bad}")
+    return launches
+
+
 PARITY_ENVS = 1024
 PARITY_STEPS = 50
+SIMPLE_PARITY_STEPS = 60
 TRIG_SAMPLES = 1 << 20
 
 
@@ -800,18 +1132,70 @@ def phase_step_parity(torch, dev):
                                     if _n_differ(torch, g2, c2)]}
         state, obs = out_c.state, out_c.obs
     total = sum(counts.values())
+    simple = {mode: _simple_parity(torch, dev, mode == "discrete")
+              for mode in ("continuous", "discrete")}
     emit({"phase": "step_parity", "envs": PARITY_ENVS,
           "steps": PARITY_STEPS, "world": "crowd_dense/crowd, jitter 1.0",
           "differing_elements": total, "compared_elements": n_elems,
           "first_difference": first,
           "by_field": {k: v for k, v in counts.items() if v},
+          "simple_env": simple,
           "trig_samples": TRIG_SAMPLES, "trig_differing": trig,
           "glibc": os.confstr("CS_GNU_LIBC_VERSION"),
           "host_cpu": _cpu_model(), "seconds": time.perf_counter() - t0})
-    if total or any(trig.values()):
+    bad_simple = {m: r for m, r in simple.items() if r["differing_elements"]}
+    if total or any(trig.values()) or bad_simple:
         raise AssertionError(f"the card's step differs from the CPU's in "
                              f"{total} elements (first: {first}); trig "
-                             f"samples differing: {trig}")
+                             f"samples differing: {trig}; SimpleEnv: "
+                             f"{bad_simple}")
+
+
+def _simple_parity(torch, dev, discrete):
+    """``SimpleEnv`` on ``crowd_sparse``/``random`` (jitter 1.0), each step
+    taken from the same CPU state on both devices with the same random
+    actions (indices into the discrete table, or (lin, ang) from the box)
+    and crowd velocities; the number of differing elements."""
+    from crowdnav_tpu_torch.envs import world
+    from crowdnav_tpu_torch.envs.config import make_config
+    from crowdnav_tpu_torch.envs.simple_env import SimpleEnv
+    from crowdnav_tpu_torch.utils.tree import to_device, tree_leaves
+    cfg = make_config("crowd_sparse", "random", jitter=1.0, max_steps=40)
+    cpu = torch.device("cpu")
+    env_c, env_g = SimpleEnv(cfg, cpu), SimpleEnv(cfg, dev)
+    env_g.template = to_device(env_c.template, dev)
+    gen = torch.Generator().manual_seed(3)
+    state, obs = env_c.reset(PARITY_ENVS, gen)
+    differ, n_elems, first, resets = 0, 0, None, 0
+    for step in range(SIMPLE_PARITY_STEPS):
+        if discrete:
+            act = torch.randint(0, 3, (PARITY_ENVS,), generator=gen)
+            fn_c, fn_g = env_c.step_discrete, env_g.step_discrete
+        else:
+            act = torch.rand((PARITY_ENVS, 2), generator=gen) \
+                * torch.tensor([0.22, 4.0]) - torch.tensor([0.0, 2.0])
+            fn_c, fn_g = env_c.step_batch, env_g.step_batch
+        vel = world.random_velocities(cfg, state.ped_pos.shape, gen, cpu)
+        out_c = fn_c(state, act, vel_draw=vel)
+        out_g = fn_g(to_device(state, dev), act.to(dev),
+                     vel_draw=vel.to(dev))
+        pairs = [(f"state.{n}", g, c) for (n, g), (_, c) in zip(
+            tree_leaves(out_g.state), tree_leaves(out_c.state))]
+        pairs += [("obs", out_g.obs, out_c.obs),
+                  ("reward", out_g.reward, out_c.reward),
+                  ("done", out_g.done, out_c.done)]
+        for name, g, c in pairs:
+            d = _n_differ(torch, g, c)
+            differ += d
+            n_elems += c.numel()
+            if d and first is None:
+                first = {"step": step, "field": name, "elements": d}
+        resets += int(state.done.sum())
+        state = out_c.state
+    return {"world": "crowd_sparse/random, jitter 1.0, max_steps 40",
+            "envs": PARITY_ENVS, "steps": SIMPLE_PARITY_STEPS,
+            "auto_resets": resets, "differing_elements": differ,
+            "compared_elements": n_elems, "first_difference": first}
 
 
 def _cpu_model():
@@ -844,10 +1228,11 @@ KERNELS = (
      "calls (ops/geom.py:34, envs/world.py:143)"))
 
 
-def kernel_line(smi, stats, train, evaluate):
+def kernel_line(smi, stats, train, evaluate, train_agents, eval_agents):
     """One entry per kernel: device time, bound, plain and library times
     at 16,384 envs (and every measured shape), launches on the training
-    run (the slice's main path) and on the evaluate run."""
+    run (the slice's main path), on the evaluate run, and on the training
+    and evaluation runs of DDPG, SAC and DQN."""
     kernels = []
     steps = train["timed_steps"]
     for name, src, replaces, what in KERNELS:
@@ -872,18 +1257,23 @@ def kernel_line(smi, stats, train, evaluate):
             entry["library_ms_reason"] = (
                 "torch.cos / torch.atan2 on the card: the same function, "
                 "not the C library's values")
+        for algo, counts in train_agents.items():
+            entry[f"launches_train_{algo}"] = counts[name]
+        for algo, counts in eval_agents.items():
+            entry[f"launches_evaluate_{algo}"] = counts[name]
         for n, sh in st["shapes"].items():
+            n = f"n{n}" if isinstance(n, int) else n
             entry.update({
-                f"device_ms_n{n}": sh["device_ms"],
-                f"plain_ms_n{n}": sh["plain_ms"],
-                f"bound_ms_n{n}": sh["bound_ms"],
-                f"bound_by_n{n}": sh["bound_by"],
-                f"bound_share_n{n}": sh["bound_ms"] / sh["device_ms"]})
+                f"device_ms_{n}": sh["device_ms"],
+                f"plain_ms_{n}": sh["plain_ms"],
+                f"bound_ms_{n}": sh["bound_ms"],
+                f"bound_by_{n}": sh["bound_by"],
+                f"bound_share_{n}": sh["bound_ms"] / sh["device_ms"]})
             if "first_design_device_ms" in sh:
-                entry[f"first_design_device_ms_n{n}"] = \
+                entry[f"first_design_device_ms_{n}"] = \
                     sh["first_design_device_ms"]
             if "library_ms" in sh:
-                entry[f"library_ms_n{n}"] = sh["library_ms"]
+                entry[f"library_ms_{n}"] = sh["library_ms"]
         kernels.append(entry)
     return kernels
 
@@ -907,7 +1297,10 @@ def main():
     stats.update(phase_libm(torch, dev))
     evaluate = phase_evaluate(torch)
     train = phase_train(torch, dev)
-    emit({"kernels": kernel_line(smi, stats, train, evaluate)})
+    train_agents = phase_train_agents(torch, dev)
+    eval_agents = phase_evaluate_agents(torch)
+    emit({"kernels": kernel_line(smi, stats, train, evaluate, train_agents,
+                                 eval_agents)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

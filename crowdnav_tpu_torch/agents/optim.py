@@ -1,6 +1,8 @@
-"""Adam, in the order of optax's ``scale_by_adam`` followed by
-``scale_by_learning_rate`` (the JAX package's ``optax.adam(lr)``), on one
-flat float32 parameter vector.
+"""Adam and RMSprop on one flat float32 parameter vector, each in the
+order of its optax counterpart.
+
+Adam follows optax's ``scale_by_adam`` followed by
+``scale_by_learning_rate`` (the JAX package's ``optax.adam(lr)``).
 
 Every elementwise step rounds where optax's does:
 
@@ -17,7 +19,16 @@ the C library's ``powf`` as XLA computes it; ``count`` stays on the device,
 so they are looked up in a table of ``1 - powf(b, t)`` made once on the
 host, up to the first ``t`` where the value rounds to 1 (165 steps for
 b1 = 0.9, 17,321 for b2 = 0.999). The square root is correctly rounded on
-both devices (``utils/numerics.sqrt``)."""
+both devices (``utils/numerics.sqrt``).
+
+RMSprop is ``optax.rmsprop(lr, decay, eps)`` with optax's defaults
+(``eps_in_sqrt``, no bias correction, no momentum), the DQN's optimizer:
+
+    nu = f32(1 - decay) * (g * g) + f32(decay) * nu      (nu starts at 0)
+    params = params + (rsqrt(nu + f32(eps)) * g) * f32(-lr)
+
+with ``rsqrt`` as XLA's CPU backend computes it (``utils/numerics.rsqrt``).
+"""
 from __future__ import annotations
 
 import ctypes
@@ -91,3 +102,27 @@ class Adam:
         step = mu_hat / (nm.sqrt(nu_hat) + nm.f32(self.eps))
         new = params + step * nm.f32(-self.lr)
         return new, AdamState(mu=mu, nu=nu, count=count)
+
+
+@dataclasses.dataclass
+class RMSpropState:
+    nu: torch.Tensor       # (P,) float32
+
+
+class RMSprop:
+    """``optax.rmsprop(lr, decay, eps)`` on a flat parameter vector."""
+
+    def __init__(self, lr: float, decay: float = 0.9, eps: float = 1e-6):
+        self.lr, self.decay, self.eps = lr, decay, eps
+
+    @staticmethod
+    def init(params: torch.Tensor) -> RMSpropState:
+        return RMSpropState(nu=torch.zeros_like(params))
+
+    def update(self, grad: torch.Tensor, state: RMSpropState,
+               params: torch.Tensor):
+        """``(new params, new state)``; no argument is modified."""
+        nu = (grad * grad) * nm.f32(1 - self.decay) \
+            + state.nu * nm.f32(self.decay)
+        step = nm.rsqrt(nu + nm.f32(self.eps)) * grad
+        return params + step * nm.f32(-self.lr), RMSpropState(nu=nu)

@@ -12,10 +12,11 @@ to one spare block past the ring, which ``sample`` never reads, and
 host never waits for the mask.
 
 Observations are stored in ``obs_dtype`` (bfloat16 halves the ring);
-actions, rewards and dones are exact float32, each field in its own
-tensor. (The JAX package packs every field into one record by bitcasts, a
-fix for the TPU's per-row gather cost; nothing here needs it.) ``sample``
-draws uniformly, with replacement, over the whole blocks written.
+actions, rewards and dones are exact float32 (discrete actions, for
+``act_dim=None``, int32), each field in its own tensor. (The JAX
+package packs every field into one record by bitcasts, a fix for the
+TPU's per-row gather cost; nothing here needs it.) ``sample`` draws
+uniformly, with replacement, over the whole blocks written.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import torch
 
 class Transition(NamedTuple):
     obs: torch.Tensor       # (B, obs_dim), storage dtype after sampling
-    action: torch.Tensor    # (B, act_dim) float32
+    action: torch.Tensor    # (B, act_dim) float32, or (B,) int32
     reward: torch.Tensor    # (B,) float32
     next_obs: torch.Tensor  # (B, obs_dim)
     done: torch.Tensor      # (B,) float32
@@ -40,7 +41,8 @@ class ReplayState:
 
     obs: torch.Tensor       # (n_blocks + 1, block, obs_dim) storage dtype
     next_obs: torch.Tensor  # (n_blocks + 1, block, obs_dim)
-    action: torch.Tensor    # (n_blocks + 1, block, act_dim) float32
+    action: torch.Tensor    # (n_blocks + 1, block, act_dim) float32,
+                            # or (n_blocks + 1, block) int32
     reward: torch.Tensor    # (n_blocks + 1, block) float32
     done: torch.Tensor      # (n_blocks + 1, block) float32
     head: torch.Tensor      # () int64, next block to write
@@ -57,7 +59,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class ReplayBuffer:
     """Fixed-capacity uniform replay; block size = env batch size."""
 
-    def __init__(self, capacity: int, obs_dim: int, act_dim: int,
+    def __init__(self, capacity: int, obs_dim: int, act_dim: int | None,
                  block: int = 1, obs_dtype="float32", device="cuda"):
         self.block = block
         self.n_blocks = max(1, -(-capacity // block))
@@ -71,7 +73,7 @@ class ReplayBuffer:
     def row_bytes(self) -> int:
         """Bytes of one stored transition."""
         return (2 * self.obs_dim * self.obs_dtype.itemsize
-                + 4 * (self.act_dim + 2))
+                + 4 * ((self.act_dim or 1) + 2))
 
     def init(self) -> ReplayState:
         nb, b, dev = self.n_blocks + 1, self.block, self.device
@@ -80,9 +82,11 @@ class ReplayBuffer:
             return torch.zeros((nb, b) + shape, dtype=dtype, device=dev)
 
         zero = torch.zeros((), dtype=torch.int64, device=dev)
+        action = z(dtype=torch.int32) if self.act_dim is None \
+            else z(self.act_dim)
         return ReplayState(obs=z(self.obs_dim, dtype=self.obs_dtype),
                            next_obs=z(self.obs_dim, dtype=self.obs_dtype),
-                           action=z(self.act_dim), reward=z(), done=z(),
+                           action=action, reward=z(), done=z(),
                            head=zero, size=zero.clone())
 
     def add_batch(self, state: ReplayState, tr: Transition,
@@ -93,8 +97,10 @@ class ReplayBuffer:
         if n != self.block:
             raise ValueError(f"add_batch block size {n} != buffer block "
                              f"{self.block}")
+        action = tr.action.to(torch.int32) if self.act_dim is None \
+            else tr.action.float()
         rows = (tr.obs.to(self.obs_dtype), tr.next_obs.to(self.obs_dtype),
-                tr.action.float(), tr.reward.float(), tr.done.float())
+                action, tr.reward.float(), tr.done.float())
         if mask is not None:
             n_kept = mask.sum(dtype=torch.int64)
             order = torch.argsort((~mask).to(torch.int8), stable=True)

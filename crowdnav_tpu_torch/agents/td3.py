@@ -88,6 +88,16 @@ def _eps_spectrum(hi: float, lo: float, n: int, folded: bool, device):
         [lib.powf(base, float(v)) for v in frac], f)).to(device)
 
 
+def value_and_grad(loss_fn, params: dict) -> tuple:
+    """``(loss, flat gradient)`` of ``loss_fn`` over a dict of parameter
+    views, the gradient in the dict's order."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with torch.enable_grad():
+        loss = loss_fn(leaves)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), torch.cat([g.reshape(-1) for g in grads])
+
+
 def eps_spectrum(cfg: TD3Config, n: int, folded: bool = True,
                  device="cpu") -> torch.Tensor:
     """(n,) float32 per-env epsilons ``eps * (eps_min / eps)^(i / (n-1))``
@@ -102,6 +112,17 @@ def eps_spectrum(cfg: TD3Config, n: int, folded: bool = True,
 class TD3:
     """A TD3 agent on ``device``: its networks' shapes, its optimizers and
     the greedy actor module ``self.actor``."""
+
+    METRICS = ("critic_loss", "actor_loss", "q_target_mean")
+    # the StepDraws field and the update's keyword of each update's draws
+    UPDATE_DRAW = ("smoothing", "smoothing_noise")
+    # the state's fields for utils/convert.py: (field, kind, network)
+    STATE_FIELDS = (
+        ("actor_params", "net", "actor"), ("actor_target", "net", "actor"),
+        ("critic_params", "net", "critic"),
+        ("critic_target", "net", "critic"), ("actor_opt", "adam", "actor"),
+        ("critic_opt", "adam", "critic"), ("update_count", "int32", None),
+        ("explore_sigma", "float32", None), ("explore_eps", "float32", None))
 
     def __init__(self, cfg: TD3Config, obs_dim: int, action_dim: int = 2,
                  device="cuda"):
@@ -119,6 +140,9 @@ class TD3:
         self.actor_layout = layout(self.actor)
         self.critic_layout = layout(DoubleCritic(obs_dim, action_dim,
                                                  cfg.hidden))
+        self.layouts = {"actor": self.actor_layout,
+                        "critic": self.critic_layout}
+        self.state_cls = TD3State
         self.actor_tx = Adam(cfg.actor_lr)
         self.critic_tx = Adam(cfg.critic_lr)
         self.lo = torch.tensor([0.0, -cfg.max_ang_vel], device=self.device)
@@ -250,16 +274,6 @@ class TD3:
         return state
 
     # ---- learning ----
-    @staticmethod
-    def _grad(loss_fn, params: dict) -> tuple:
-        """``(loss, flat gradient)`` of ``loss_fn`` over a dict of
-        parameter views."""
-        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-        with torch.enable_grad():
-            loss = loss_fn(leaves)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), torch.cat([g.reshape(-1) for g in grads])
-
     @torch.no_grad()
     def td_target(self, state: TD3State, batch: Transition,
                   smoothing_noise: torch.Tensor) -> torch.Tensor:
@@ -285,7 +299,7 @@ class TD3:
             q1, q2 = critic_apply(p, obs, action)
             return ((q1 - y) ** 2).mean() + ((q2 - y) ** 2).mean()
 
-        return self._grad(critic_loss, self.critic_params(critic_flat))
+        return value_and_grad(critic_loss, self.critic_params(critic_flat))
 
     def actor_grad(self, actor_flat: torch.Tensor,
                    critic_flat: torch.Tensor, obs):
@@ -298,7 +312,7 @@ class TD3:
                                heads=("q1",))
             return -q1.mean()
 
-        return self._grad(actor_loss, self.actor_params(actor_flat))
+        return value_and_grad(actor_loss, self.actor_params(actor_flat))
 
     @torch.no_grad()
     def update(self, state: TD3State, batch: Transition,

@@ -1,29 +1,42 @@
 """Evaluation driver of the port (``crowdnav_tpu/drivers/evaluate.py``):
-greedy TD3 rollouts of N envs per scenario, reporting success rate, mean
-reward and steps, and ego/social safety in the reference's CSV schema.
+greedy rollouts of N envs per scenario (TD3 and DDPG on the perceived-risk
+env, SAC and DQN on the simple env), reporting success rate, mean reward
+and steps, and ego/social safety in the reference's CSV schema.
 
     python -m crowdnav_tpu_torch.drivers.evaluate --suite train \
         --checkpoint crowdnav_tpu_torch/assets/final_full_actor.npz
+    python -m crowdnav_tpu_torch.drivers.evaluate --algo ddpg --suite train \
+        --checkpoint crowdnav_tpu_torch/assets/ddpg_peak \
+        --checkpoint-step 1572864
+    python -m crowdnav_tpu_torch.drivers.evaluate --algo dqn \
+        --suite train_sparse \
+        --checkpoint crowdnav_tpu_torch/assets/dqn_qnet.npz
 
-``--checkpoint`` takes an actor exported by ``scripts/export_torch_actor.py``
-(the flax actor arrays and the training run's ``run_config.json``), or an
-agent checkpoint of the port's ``drivers/train`` (a directory of
-``agent_<step>.npz`` files, or one of them; ``scripts/export_torch_agent.py``
-writes the same format from a JAX checkpoint).
+``--checkpoint`` takes a policy exported by ``scripts/export_torch_actor.py``
+or ``scripts/export_torch_agent.py --policy`` (the flax arrays of the
+actor, or of DQN's Q-network, and the run's metadata), or an agent
+checkpoint of the port's ``drivers/train`` (a directory of
+``agent_<step>.npz`` files, where ``--checkpoint-step`` picks one, or one
+of them; ``scripts/export_torch_agent.py`` writes the same format from a
+JAX checkpoint). Without an ``agent_config`` in the metadata (checkpoints
+written before ``run_config.json`` existed) the agent takes its config's
+defaults.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import time
 
 import torch
 
-from crowdnav_tpu_torch.agents.td3 import TD3, TD3Config
+from crowdnav_tpu_torch.drivers.train import (DISCRETE_ALGOS,
+                                              RISK_ENV_ALGOS,
+                                              build_agent_from_metadata)
 from crowdnav_tpu_torch.envs.config import ROBOT_PRESETS, make_config
 from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
+from crowdnav_tpu_torch.envs.simple_env import SimpleEnv
 from crowdnav_tpu_torch.parallel.runtime import Trainer, TrainerConfig
 from crowdnav_tpu_torch.utils.checkpoint import (agent_file,
                                                  load_run_metadata,
@@ -48,44 +61,48 @@ SUITES = {
 }
 
 
-def load_actor_file(path: str):
-    """(flax actor params, run metadata or None) from an exported actor
-    file or an agent checkpoint (file or directory)."""
-    arrays, meta = read_arrays(agent_file(path))
-    if "actor_params/Dense_0/kernel" in arrays:     # an agent checkpoint
-        arrays = {k[len("actor_params/"):]: v for k, v in arrays.items()
-                  if k.startswith("actor_params/")}
+def load_actor_file(path: str, step: int | None = None,
+                    algo: str = "td3"):
+    """(flax params of the greedy policy, run metadata or None) from an
+    exported policy file or an agent checkpoint (file, or directory with
+    ``step`` or the newest); the policy is DQN's Q-network for ``dqn``,
+    else the actor."""
+    arrays, meta = read_arrays(agent_file(path, step))
+    prefix = "params/" if algo == "dqn" else "actor_params/"
+    if f"{prefix}Dense_0/kernel" in arrays:     # an agent checkpoint
+        arrays = {k[len(prefix):]: v for k, v in arrays.items()
+                  if k.startswith(prefix)}
         if meta is None and os.path.isdir(path):
             meta = load_run_metadata(path)
     return npz_to_flax_actor(arrays), meta
 
 
-def build_agent(agent_cfg: dict | None, obs_dim: int, device) -> TD3:
-    """A TD3 agent with the training run's config (unknown keys dropped)."""
-    if agent_cfg is None:
-        return TD3(TD3Config(), obs_dim, device=device)
-    fields = {f.name for f in dataclasses.fields(TD3Config)}
-    cfg = TD3Config(**{k: v for k, v in agent_cfg.items() if k in fields})
-    return TD3(cfg, obs_dim, device=device)
+def build_agent(agent_cfg: dict | None, obs_dim: int, device,
+                algo: str = "td3", n_envs: int = 1):
+    """An agent of ``algo`` with the training run's config (unknown keys
+    dropped; the defaults without one)."""
+    return build_agent_from_metadata(algo, agent_cfg, obs_dim, n_envs,
+                                     device)[0]
 
 
-def evaluate_scenario(agent: TD3, world: str, behavior: str, n_envs: int,
+def evaluate_scenario(agent, world: str, behavior: str, n_envs: int,
                       max_steps: int, seed: int, jitter: float = 0.0,
                       ablation: str | None = None, robot: str | None = None,
-                      device="cuda"):
+                      device="cuda", algo: str = "td3"):
     """One scenario, ``n_envs`` greedy envs, one chunk of ``max_steps``;
     only episodes that complete inside the chunk count. With ``jitter``
     every env and every auto-reset (through a reset bank of ``n_envs``
     entries) starts from a distinct randomized spawn."""
     cfg = make_config(world, behavior, max_steps=max_steps, jitter=jitter,
                       ablation=ablation, robot=robot)
-    env = CrowdEnv(cfg, device=device, seed=seed)
+    env_cls = CrowdEnv if algo in RISK_ENV_ALGOS else SimpleEnv
+    env = env_cls(cfg, device=device, seed=seed)
     if env.obs_dim != agent.obs_dim:
         raise ValueError(f"agent obs_dim {agent.obs_dim} != env obs_dim "
                          f"{env.obs_dim}")
     tcfg = TrainerConfig(n_envs=n_envs, rollout_chunk=max_steps,
                          learning=False, reset_bank=n_envs if jitter else 0)
-    trainer = Trainer(env, agent, tcfg)
+    trainer = Trainer(env, agent, tcfg, discrete=algo in DISCRETE_ALGOS)
     state = trainer.init(seed)
     if env.device.type == "cuda":
         torch.cuda.synchronize(env.device)
@@ -99,10 +116,15 @@ def evaluate_scenario(agent: TD3, world: str, behavior: str, n_envs: int,
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--algo", default="td3", choices=["td3"])
+    p.add_argument("--algo", default="td3",
+                   choices=["td3", "ddpg", "sac", "dqn"])
     p.add_argument("--checkpoint", default=None,
-                   help="actor file written by scripts/export_torch_actor.py"
-                        ", or an agent checkpoint of drivers/train")
+                   help="policy file written by scripts/export_torch_actor.py"
+                        " or export_torch_agent.py --policy, or an agent "
+                        "checkpoint of drivers/train")
+    p.add_argument("--checkpoint-step", type=int, default=None,
+                   help="the step of a checkpoint directory "
+                        "(agent_<step>.npz); default the newest")
     p.add_argument("--suite", default="20", choices=list(SUITES))
     p.add_argument("--ablation", default=None)
     p.add_argument("--robot", default=None, choices=list(ROBOT_PRESETS))
@@ -121,7 +143,8 @@ def main(argv=None):
 
     params, meta, agent_cfg = None, None, None
     if args.checkpoint:
-        params, meta = load_actor_file(args.checkpoint)
+        params, meta = load_actor_file(args.checkpoint, args.checkpoint_step,
+                                       args.algo)
     if meta is not None:
         if meta["algo"] != args.algo:
             raise SystemExit(f"--algo {args.algo} conflicts with checkpoint "
@@ -140,14 +163,16 @@ def main(argv=None):
             raise SystemExit(f"--robot {args.robot} conflicts with "
                              f"checkpoint metadata (trained with "
                              f"robot={ckpt_robot!r})")
-        agent_cfg = meta["agent_config"]
+        agent_cfg = meta.get("agent_config")
     world, behavior = SUITES[args.suite][0]
-    obs_dim = make_config(world, behavior, ablation=args.ablation,
-                          robot=args.robot).state_dim_risk
+    cfg = make_config(world, behavior, ablation=args.ablation,
+                      robot=args.robot)
+    obs_dim = cfg.state_dim_risk if args.algo in RISK_ENV_ALGOS \
+        else cfg.state_dim_simple
     if meta is not None and meta.get("obs_dim") not in (None, obs_dim):
         raise SystemExit(f"checkpoint obs_dim {meta['obs_dim']} != eval env "
                          f"obs_dim {obs_dim} (world/ablation mismatch)")
-    agent = build_agent(agent_cfg, obs_dim, device)
+    agent = build_agent(agent_cfg, obs_dim, device, args.algo, args.n_envs)
     if params is not None:
         agent.load_actor(flax_actor_to_state_dict(params))
     else:
@@ -159,7 +184,7 @@ def main(argv=None):
         summary = evaluate_scenario(
             agent, world, behavior, args.n_envs, args.max_steps,
             args.seed + i, jitter=args.jitter, ablation=args.ablation,
-            robot=args.robot, device=device)
+            robot=args.robot, device=device, algo=args.algo)
         logger.record_summary(summary, 0, summary["timelapse"])
         print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
                           for k, v in summary.items()}), flush=True)

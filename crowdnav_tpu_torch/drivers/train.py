@@ -1,8 +1,9 @@
-"""Training driver of the port (``crowdnav_tpu/drivers/train.py``), TD3 on
-the perceived-risk env: chunked batched training, one aggregate CSV row
-per chunk in the reference's schema plus the greedy cohort's columns,
-periodic and final checkpoints, and the collapse restart of the flagship
-recipe.
+"""Training driver of the port (``crowdnav_tpu/drivers/train.py``): TD3
+and DDPG on the perceived-risk env, SAC and DQN on the simple env (as the
+reference's drivers pair them); chunked batched training, one aggregate
+CSV row per chunk in the reference's schema plus the greedy cohort's
+columns, periodic and final checkpoints, and the collapse restart of the
+flagship recipe.
 
     python -m crowdnav_tpu_torch.drivers.train --algo td3 \\
         --world crowd_dense --behavior crowd --n-envs 16384 --chunk 64 \\
@@ -10,11 +11,14 @@ recipe.
         --learn-start 32768 --replay-obs-dtype bfloat16 --jitter 1.0 \\
         --explore-eps 1.0 --explore-eps-min 0.05 --explore-spectrum \\
         --restart-on-collapse 3 --outdir results/torch_full
+    python -m crowdnav_tpu_torch.drivers.train --algo dqn \\
+        --world crowd_sparse --behavior random --n-envs 512 --chunk 64 \\
+        --updates-per-step 32 --jitter 1.0 --outdir results/torch_dqn
 
-Options of the JAX driver whose modules are not ported raise: the other
-algorithms, several devices or hosts, the profiler trace, the per-step
-noise knobs, the bfloat16 learner and the Pallas risk backend. Three
-faults of the JAX driver are not carried over: the final attempt's
+Options of the JAX driver whose modules are not ported raise: several
+devices or hosts, the profiler trace, the per-step noise knobs, the
+bfloat16 learner and the Pallas risk backend. Three faults of the JAX
+driver are not carried over: the final attempt's
 collapse verdict is printed, the printed ``env_steps`` count the steps of
 collapse-restarted attempts, and ``--resume`` keeps that count.
 """
@@ -25,10 +29,14 @@ import dataclasses
 import json
 import time
 
+from crowdnav_tpu_torch.agents.ddpg import DDPG, DDPGConfig
+from crowdnav_tpu_torch.agents.dqn import DQN, DQNConfig
+from crowdnav_tpu_torch.agents.sac import SAC, SACConfig
 from crowdnav_tpu_torch.agents.td3 import TD3, TD3Config
 from crowdnav_tpu_torch.envs.config import (ABLATION_PRESETS, ROBOT_PRESETS,
                                             make_config)
 from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
+from crowdnav_tpu_torch.envs.simple_env import SimpleEnv
 from crowdnav_tpu_torch.parallel.runtime import Trainer, TrainerConfig
 from crowdnav_tpu_torch.utils.checkpoint import (restore_checkpoint,
                                                  save_agent, save_checkpoint,
@@ -38,28 +46,69 @@ from crowdnav_tpu_torch.utils.logging import EpisodeLogger
 from crowdnav_tpu_torch.utils.profiling import StepThroughput
 
 
-def build_agent(args, obs_dim: int, device) -> TD3:
-    """The TD3 agent of the command line (``_build_agent`` of the JAX
-    driver)."""
+# the reference's pairing: TD3 and DDPG on the perceived-risk env, SAC and
+# DQN on the simple env (the JAX driver's RISK_ENV_ALGOS)
+RISK_ENV_ALGOS = {"td3", "ddpg"}
+DISCRETE_ALGOS = {"dqn"}          # index actions, SimpleEnv.step_discrete
+CONFIG_CLS = {"td3": TD3Config, "ddpg": DDPGConfig, "sac": SACConfig,
+              "dqn": DQNConfig}
+
+
+def make_agent(algo: str, cfg, obs_dim: int, n_envs: int, device):
+    """``(agent, discrete)`` for a config of ``CONFIG_CLS[algo]``."""
+    if algo == "td3":
+        agent = TD3(cfg, obs_dim, device=device)
+    elif algo == "ddpg":
+        agent = DDPG(cfg, obs_dim, n_envs=n_envs, device=device)
+    elif algo == "sac":
+        agent = SAC(cfg, obs_dim, device=device)
+    else:
+        agent = DQN(cfg, obs_dim, device=device)
+    return agent, algo in DISCRETE_ALGOS
+
+
+def build_agent_from_metadata(algo: str, cfg_dict: dict | None,
+                              obs_dim: int, n_envs: int, device):
+    """``(agent, discrete)`` with a checkpoint's ``agent_config``; unknown
+    keys are dropped and a missing config (checkpoints written before
+    ``run_config.json`` existed) gives the defaults, as the JAX driver
+    restores against a default template."""
+    cls = CONFIG_CLS[algo]
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kw = {k: v for k, v in (cfg_dict or {}).items() if k in fields}
+    if "hidden" in kw and isinstance(kw["hidden"], list):
+        kw["hidden"] = tuple(kw["hidden"])        # DQN's, through JSON
+    return make_agent(algo, cls(**kw), obs_dim, n_envs, device)
+
+
+def build_agent(args, obs_dim: int, device):
+    """``(agent, discrete)`` of the command line (``_build_agent`` of the
+    JAX driver): TD3 takes the learning rates, the sigma anneal and the
+    exploration flags; DDPG the actor's rate and the exploration flags;
+    SAC and DQN the batch size only. ``--buffer-size`` (the port's option)
+    applies to all."""
     kw = {}
-    if args.actor_lr:
-        kw.update(actor_lr=args.actor_lr)
-    if args.critic_lr:
-        kw.update(critic_lr=args.critic_lr)
-    if args.sigma_min is not None:
-        kw.update(explore_sigma_min=args.sigma_min,
-                  explore_decay_steps=int(args.sigma_decay_steps))
     if args.batch_size:
         kw.update(batch_size=args.batch_size)
     if args.buffer_size:
         kw.update(buffer_size=args.buffer_size)
-    if args.explore_eps:
-        kw.update(explore_uniform_eps=args.explore_eps)
-        if args.explore_eps_min is not None:
-            kw.update(explore_uniform_eps_min=args.explore_eps_min)
-        if args.explore_spectrum:
-            kw.update(explore_eps_spectrum=True)
-    return TD3(TD3Config(**kw), obs_dim, device=device)
+    if args.algo in ("td3", "ddpg"):
+        if args.actor_lr:
+            kw.update(actor_lr=args.actor_lr)
+        if args.explore_eps:
+            kw.update(explore_uniform_eps=args.explore_eps)
+            if args.explore_eps_min is not None:
+                kw.update(explore_uniform_eps_min=args.explore_eps_min)
+            if args.explore_spectrum:
+                kw.update(explore_eps_spectrum=True)
+    if args.algo == "td3":
+        if args.critic_lr:
+            kw.update(critic_lr=args.critic_lr)
+        if args.sigma_min is not None:
+            kw.update(explore_sigma_min=args.sigma_min,
+                      explore_decay_steps=int(args.sigma_decay_steps))
+    return make_agent(args.algo, CONFIG_CLS[args.algo](**kw), obs_dim,
+                      args.n_envs, device)
 
 
 def run_metadata(args, trainer) -> dict:
@@ -98,8 +147,6 @@ def collapse_verdict(summary: dict, chunk: int, args):
 
 def _refuse_unported(args):
     bad = []
-    if args.algo != "td3":
-        bad.append(f"--algo {args.algo}")
     if args.n_devices > 1:
         bad.append("--n-devices > 1")
     if args.multihost:
@@ -123,8 +170,9 @@ def build(args) -> Trainer:
     cfg = make_config(args.world, args.behavior, ablation=args.ablation,
                       jitter=args.jitter, robot=args.robot,
                       max_steps=args.max_steps)
-    env = CrowdEnv(cfg, device=device, seed=args.seed)
-    agent = build_agent(args, env.obs_dim, device)
+    env_cls = CrowdEnv if args.algo in RISK_ENV_ALGOS else SimpleEnv
+    env = env_cls(cfg, device=device, seed=args.seed)
+    agent, discrete = build_agent(args, env.obs_dim, device)
     reset_bank = args.reset_bank
     if args.jitter and not reset_bank:
         # jittered resets need distinct spawns at every auto-reset
@@ -133,7 +181,7 @@ def build(args) -> Trainer:
                          updates_per_step=args.updates_per_step,
                          learn_start=args.learn_start, reset_bank=reset_bank,
                          replay_obs_dtype=args.replay_obs_dtype or "float32")
-    return Trainer(env, agent, tcfg)
+    return Trainer(env, agent, tcfg, discrete=discrete)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -159,8 +207,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--critic-lr", type=float, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--buffer-size", type=int, default=None,
-                   help="replay rows (the port's option; default TD3Config's"
-                        " 1,000,000, rounded up to whole blocks of --n-envs)")
+                   help="replay rows (the port's option; default the agent "
+                        "config's 1,000,000, rounded up to whole blocks of "
+                        "--n-envs)")
     p.add_argument("--jitter", type=float, default=0.0)
     p.add_argument("--actuation-noise", type=float, default=0.0)
     p.add_argument("--dt-jitter", type=float, default=0.0)
@@ -274,9 +323,15 @@ def main(argv=None):
                     verdict_done = False
                     continue
         chunk += 1
-        # each attempt anneals from its own start
-        state = dataclasses.replace(state, agent_state=agent.decay_sigma(
-            state.agent_state, steps_done + chunk * spc))
+        if hasattr(agent, "decay_epsilon"):
+            # the reference decays epsilon once per episode; here once per
+            # chunk, as the JAX driver
+            state = dataclasses.replace(
+                state, agent_state=agent.decay_epsilon(state.agent_state))
+        if hasattr(agent, "decay_sigma"):
+            # each attempt anneals from its own start
+            state = dataclasses.replace(state, agent_state=agent.decay_sigma(
+                state.agent_state, steps_done + chunk * spc))
         key = steps_done + wasted_steps + chunk * spc
         if args.ckpt_every_chunks and chunk % args.ckpt_every_chunks == 0:
             save_checkpoint(ckpt_dir, state, steps_done + chunk * spc,

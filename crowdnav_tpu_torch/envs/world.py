@@ -243,8 +243,10 @@ def crowd_step(cfg: EnvConfig, step, ped_pos, ped_vel, ped_dirs, ped_phase,
     return torch.clamp(pos, -lim, lim), vel
 
 
-def classify_action(lin_vel, ang_vel):
-    """0 = FORWARD (|w| <= 2/16), 1 = LEFT, 2 = RIGHT, 3 = STOP."""
+def classify_action(lin_vel, ang_vel, mode_discrete: bool = False):
+    """0 = FORWARD (|w| <= 2/16), 1 = LEFT, 2 = RIGHT, 3 = STOP; the same
+    codes in both action modes (``mode_discrete`` is accepted, and unused,
+    as in the JAX package)."""
     fwd = (ang_vel >= -0.125) & (ang_vel <= 0.125)
     code = torch.where(fwd, 0, torch.where(ang_vel > 0, 1, 2))
     stop = (lin_vel == 0.0) & (ang_vel == 0.0)

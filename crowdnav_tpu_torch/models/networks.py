@@ -1,5 +1,7 @@
-"""The TD3 networks (port of ``DeterministicActor``, ``QCritic`` and
-``DoubleCritic`` in ``crowdnav_tpu/models/networks.py``), float32.
+"""The learners' networks (port of ``crowdnav_tpu/models/networks.py``),
+float32: TD3's and DDPG's ``DeterministicActor``, ``QCritic`` and
+``DoubleCritic``; SAC's ``GaussianActor`` and ``ValueNetwork``; DQN's
+``QNetwork``.
 
 The actor is a 2-hidden-layer ReLU MLP whose two outputs are squashed to
 the action box: sigmoid -> [0, v_max] linear velocity and tanh ->
@@ -11,8 +13,10 @@ product, as flax's ``Dense(dtype=float32)`` does.
 The learner keeps each network's parameters in one flat float32 vector
 (:func:`flatten`, :func:`unflatten`), so that its optimizer and its soft
 target updates are a few whole-vector operations; the modules and the
-functional forms (:func:`actor_apply`, :func:`critic_apply`) compute the
-same thing from the same parameters.
+functional forms (:func:`actor_apply`, :func:`critic_apply`,
+:func:`gaussian_apply`, :func:`mlp_apply`) compute the same thing from the
+same parameters. Every layer is ``dense{i}``, flax's ``Dense_{i}`` (the
+Gaussian actor's mean head is ``dense2``, its log-std head ``dense3``).
 """
 from __future__ import annotations
 
@@ -35,12 +39,36 @@ def lecun_normal_(weight: torch.Tensor, gen: torch.Generator | None = None):
     return weight
 
 
+def lecun_uniform_(weight: torch.Tensor,
+                   gen: torch.Generator | None = None):
+    """flax's ``lecun_uniform``: U(-sqrt(3 / fan_in), sqrt(3 / fan_in))."""
+    bound = math.sqrt(3.0 / weight.shape[1])
+    with torch.no_grad():
+        weight.uniform_(-bound, bound, generator=gen)
+    return weight
+
+
+def scaled_uniform_(t: torch.Tensor, scale: float,
+                    gen: torch.Generator | None = None):
+    """flax's ``uniform(scale)``: U[0, scale)."""
+    with torch.no_grad():
+        t.uniform_(0.0, scale, generator=gen)
+    return t
+
+
+def mlp_apply(p: dict, x: torch.Tensor, n_layers: int = 3,
+              prefix: str = "") -> torch.Tensor:
+    """A ReLU MLP of ``n_layers`` dense layers, linear output."""
+    for i in range(n_layers):
+        x = F.linear(x, p[f"{prefix}dense{i}.weight"],
+                     p[f"{prefix}dense{i}.bias"])
+        if i < n_layers - 1:
+            x = torch.relu(x)
+    return x
+
+
 def _mlp(p: dict, prefix: str, x: torch.Tensor) -> torch.Tensor:
-    x = torch.relu(F.linear(x, p[f"{prefix}dense0.weight"],
-                            p[f"{prefix}dense0.bias"]))
-    x = torch.relu(F.linear(x, p[f"{prefix}dense1.weight"],
-                            p[f"{prefix}dense1.bias"]))
-    return F.linear(x, p[f"{prefix}dense2.weight"], p[f"{prefix}dense2.bias"])
+    return mlp_apply(p, x, 3, prefix)
 
 
 def actor_heads(p: dict, obs: torch.Tensor):
@@ -117,6 +145,102 @@ class DoubleCritic(nn.Module):
 
     def forward(self, obs, action):
         return critic_apply(dict(self.named_parameters()), obs, action)
+
+
+def gaussian_apply(p: dict, obs: torch.Tensor, log_std_min: float = -20.0,
+                   log_std_max: float = 2.0):
+    """SAC's Gaussian actor: ``(mean, log_std)``, each (B, A), the log-std
+    clipped to [``log_std_min``, ``log_std_max``]."""
+    x = torch.relu(F.linear(obs.float(), p["dense0.weight"],
+                            p["dense0.bias"]))
+    x = torch.relu(F.linear(x, p["dense1.weight"], p["dense1.bias"]))
+    mean = F.linear(x, p["dense2.weight"], p["dense2.bias"])
+    log_std = F.linear(x, p["dense3.weight"], p["dense3.bias"])
+    return mean, torch.clamp(log_std, log_std_min, log_std_max)
+
+
+def squash(z: torch.Tensor, max_lin_vel: float,
+           max_ang_vel: float) -> torch.Tensor:
+    """SAC's action heads on ``tanh(z)``: sigmoid -> [0, v_max], tanh ->
+    [-w_max, w_max]."""
+    a = torch.tanh(z)
+    return torch.cat([torch.sigmoid(a[..., :1]) * max_lin_vel,
+                      torch.tanh(a[..., 1:2]) * max_ang_vel], dim=-1)
+
+
+class GaussianActor(nn.Module):
+    """SAC's actor: two ReLU layers, then the mean head ``dense2`` and the
+    log-std head ``dense3``, both initialised U[0, 3e-3) as flax's
+    ``uniform(3e-3)``."""
+
+    def __init__(self, obs_dim: int, action_dim: int = 2, hidden: int = 256,
+                 log_std_min: float = -20.0, log_std_max: float = 2.0,
+                 max_lin_vel: float = 0.22, max_ang_vel: float = 2.0):
+        super().__init__()
+        self.dense0 = nn.Linear(obs_dim, hidden)
+        self.dense1 = nn.Linear(hidden, hidden)
+        self.dense2 = nn.Linear(hidden, action_dim)
+        self.dense3 = nn.Linear(hidden, action_dim)
+        self.log_std_min, self.log_std_max = log_std_min, log_std_max
+        self.max_lin_vel, self.max_ang_vel = max_lin_vel, max_ang_vel
+
+    def reset_parameters(self, gen: torch.Generator | None = None):
+        for layer in (self.dense0, self.dense1):
+            lecun_normal_(layer.weight, gen)
+            nn.init.zeros_(layer.bias)
+        for layer in (self.dense2, self.dense3):
+            scaled_uniform_(layer.weight, 3e-3, gen)
+            scaled_uniform_(layer.bias, 3e-3, gen)
+
+    def forward(self, obs: torch.Tensor):
+        return gaussian_apply(dict(self.named_parameters()), obs,
+                              self.log_std_min, self.log_std_max)
+
+    def greedy(self, obs: torch.Tensor) -> torch.Tensor:
+        """``squash(mean)``, unclipped."""
+        return squash(self(obs)[0], self.max_lin_vel, self.max_ang_vel)
+
+
+class ValueNetwork(_MLP):
+    """SAC's state-value net: obs -> hidden -> hidden -> 1, the last layer
+    U[0, 3e-3) (``hidden=2`` is the reference's quirk, see the JAX
+    package's docstring)."""
+
+    def __init__(self, obs_dim: int, hidden: int = 256):
+        super().__init__(obs_dim, hidden, 1)
+
+    def reset_parameters(self, gen: torch.Generator | None = None):
+        for layer in (self.dense0, self.dense1):
+            lecun_normal_(layer.weight, gen)
+            nn.init.zeros_(layer.bias)
+        scaled_uniform_(self.dense2.weight, 3e-3, gen)
+        scaled_uniform_(self.dense2.bias, 3e-3, gen)
+
+    def forward(self, obs):
+        return mlp_apply(dict(self.named_parameters()), obs.float())
+
+
+class QNetwork(nn.Module):
+    """DQN's value head: ReLU layers of the widths ``hidden``, then
+    ``n_actions`` linear outputs; lecun-uniform kernels, zero biases."""
+
+    def __init__(self, obs_dim: int, n_actions: int = 3,
+                 hidden=(300, 300)):
+        super().__init__()
+        widths = [obs_dim, *hidden, n_actions]
+        self.n_layers = len(widths) - 1
+        for i in range(self.n_layers):
+            setattr(self, f"dense{i}", nn.Linear(widths[i], widths[i + 1]))
+
+    def reset_parameters(self, gen: torch.Generator | None = None):
+        for i in range(self.n_layers):
+            layer = getattr(self, f"dense{i}")
+            lecun_uniform_(layer.weight, gen)
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return mlp_apply(dict(self.named_parameters()), obs.float(),
+                         self.n_layers)
 
 
 def layout(module: nn.Module):

@@ -5,12 +5,15 @@ accumulate the episode statistics of the reference's CSV schema on the
 device; ``drain_stats`` reads them out. With ``learning=True`` the actions
 explore, every step's transitions go into the replay ring (the terminal ->
 reset rows masked out), and once the ring holds ``learn_start`` rows every
-step takes ``updates_per_step`` TD3 updates, each on a fresh uniform
-sample. The ring's size is read on the host only until that gate has
-opened once (it only grows); after that a step makes no device-to-host
-read. Every draw comes from the state's generator, or from ``draws``
-(:class:`StepDraws`, one per step), through which a test feeds the JAX
-package's draws.
+step takes ``updates_per_step`` updates of the agent (TD3, DDPG, SAC or
+DQN), each on a fresh uniform sample. With ``discrete=True`` the actions
+are indices and the env steps through ``step_discrete`` (DQN on
+``SimpleEnv``); an ``act`` that returns ``(action, state)`` (DDPG's OU
+carry) carries the new agent state. The ring's size is read on the host
+only until that gate has opened once (it only grows); after that a step
+makes no device-to-host read. Every draw comes from the state's
+generator, or from ``draws`` (:class:`StepDraws`, one per step), through
+which a test feeds the JAX package's draws.
 
 Setting ``Trainer.spans`` to a list turns on timing: each step then
 appends five recorded CUDA events, ``(start, acted, stepped,
@@ -47,11 +50,13 @@ class StepDraws(NamedTuple):
     """Pre-drawn randomness of one step (tests); a None field is drawn
     from the state's generator."""
 
-    act: Any = None               # (noise, unif, u) of ``TD3.explore``
+    act: Any = None               # the agent's exploration draws
+                                  # (``exploration_draws``)
     bank_idx: Any = None          # (N,) reset-bank entries
     vel: Any = None               # (N, P, 2) random-crowd velocities
     sample_idx: Any = None        # [updates_per_step] x (batch,) rows
-    smoothing: Any = None         # [updates_per_step] x (batch, 2)
+    smoothing: Any = None         # TD3: [updates_per_step] x (batch, 2)
+    sac_noise: Any = None         # SAC: [updates_per_step] x (batch, 2)
 
 
 @dataclasses.dataclass
@@ -90,9 +95,6 @@ def init_stats(n_envs: int, device="cuda") -> EpisodeStats:
         greedy_successes=zi())
 
 
-LEARN_METRICS = ("critic_loss", "actor_loss", "q_target_mean")
-
-
 def greedy_env_mask(agent, n_envs: int, eps_cutoff: float = 0.1,
                     device="cpu") -> torch.Tensor:
     """(n_envs,) bool: envs whose behavior policy is (near-)greedy under
@@ -112,7 +114,7 @@ class TrainerState:
     stats: EpisodeStats
     gen: torch.Generator            # every draw of the rollout
     reset_bank: Optional[Any] = None  # (bank_states, bank_obs) or None
-    agent_state: Optional[Any] = None   # TD3State when learning
+    agent_state: Optional[Any] = None   # the learner state
     replay: Optional[Any] = None        # ReplayState when learning
     learn_metrics: Optional[dict] = None  # the last update's, on device
     learning_open: bool = False     # host: the learn gate has opened
@@ -120,21 +122,24 @@ class TrainerState:
 
 class Trainer:
     """Binds an env and an agent into batched rollouts, and with
-    ``learning`` into training: exploring acts, the replay ring and TD3
-    updates."""
+    ``learning`` into training: exploring acts, the replay ring and the
+    agent's updates."""
 
-    def __init__(self, env, agent, tcfg: TrainerConfig):
+    def __init__(self, env, agent, tcfg: TrainerConfig,
+                 discrete: bool = False):
         self.env = env
         self.agent = agent
         self.tcfg = tcfg
+        self.discrete = discrete
         self.device = env.device
         self.greedy_mask = greedy_env_mask(agent, tcfg.n_envs,
                                            device=self.device)
         self.spans = None
         self.buffer = None
         if tcfg.learning:
+            act_dim = None if discrete else env.action_dim
             self.buffer = ReplayBuffer(agent.cfg.buffer_size, env.obs_dim,
-                                       env.action_dim, block=tcfg.n_envs,
+                                       act_dim, block=tcfg.n_envs,
                                        obs_dtype=tcfg.replay_obs_dtype,
                                        device=self.device)
 
@@ -152,7 +157,8 @@ class Trainer:
             state = dataclasses.replace(
                 state, agent_state=self.agent.init_state(seed),
                 replay=self.buffer.init(),
-                learn_metrics={k: zero.clone() for k in LEARN_METRICS})
+                learn_metrics={k: zero.clone()
+                               for k in self.agent.METRICS})
         return state
 
     @torch.no_grad()
@@ -165,13 +171,18 @@ class Trainer:
             actions = self.agent.act(state.obs, explore=True,
                                      state=state.agent_state, gen=state.gen,
                                      draws=draws.act)
+            if isinstance(actions, tuple):    # DDPG: (action, state)
+                actions, agent_state = actions
+                state = dataclasses.replace(state, agent_state=agent_state)
         else:
             actions = self.agent.act(state.obs, explore=False)
         marks.append(self._mark())
         was_done = state.env_states.done
         state_obs = state.obs
-        out = self.env.step_batch(state.env_states, actions, gen=state.gen,
-                                  vel_draw=draws.vel)
+        step = self.env.step_discrete if self.discrete \
+            else self.env.step_batch
+        out = step(state.env_states, actions, gen=state.gen,
+                   vel_draw=draws.vel)
 
         new_states, new_obs = out.state, out.obs
         if state.reset_bank is not None:
@@ -194,7 +205,7 @@ class Trainer:
         n_done = done_now.sum(dtype=i32)
         succ = out.state.episode_success & done_now
         n_succ = succ.sum(dtype=i32)
-        ego, social = self.env.safety_scores(out.state)
+        ego, social = self._safety(out.state)
         s = out.state
 
         def fsum(v):
@@ -267,17 +278,32 @@ class Trainer:
         n = max(len(self.spans), 1)
         return {k: v / n for k, v in tot.items()}
 
+    def _safety(self, env_states):
+        """Per-env ego and social safety scores; zeros for an env without
+        ``safety_scores`` (``SimpleEnv``)."""
+        if hasattr(self.env, "safety_scores"):
+            return self.env.safety_scores(env_states)
+        z = torch.zeros(env_states.done.shape, dtype=torch.float32,
+                        device=env_states.done.device)
+        return z, z
+
     def _learn(self, agent_state, replay, gen, draws: StepDraws):
-        """``updates_per_step`` updates, each on a fresh uniform sample;
-        the last update's metrics."""
+        """``updates_per_step`` updates, each on a fresh uniform sample and
+        with its own draws (``agent.UPDATE_DRAW``: the StepDraws field and
+        the update's keyword; TD3's smoothing noise, SAC's normal); the
+        last update's metrics."""
         metrics = None
         bsz = self.agent.cfg.batch_size
+        own = self.agent.UPDATE_DRAW
         for i in range(self.tcfg.updates_per_step):
             idx = None if draws.sample_idx is None else draws.sample_idx[i]
-            noise = None if draws.smoothing is None else draws.smoothing[i]
             batch = self.buffer.sample(replay, bsz, gen, idx=idx)
-            agent_state, metrics = self.agent.update(
-                agent_state, batch, gen=gen, smoothing_noise=noise)
+            kw = {}
+            if own is not None:
+                given = getattr(draws, own[0])
+                kw[own[1]] = None if given is None else given[i]
+            agent_state, metrics = self.agent.update(agent_state, batch,
+                                                     gen=gen, **kw)
         return agent_state, metrics
 
     def rollout_chunk(self, state: TrainerState,

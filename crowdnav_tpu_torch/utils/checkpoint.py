@@ -10,7 +10,8 @@ JAX package).
   into place (the ring alone is 1.6 GB at the flagship width; as in the
   JAX package, every step's file is kept).
 - The agent alone: ``<dir>/agent_<step>.npz``, the arrays of the learner
-  state under the keys of ``utils/convert.py`` and the run's metadata as
+  state (any algorithm) under the keys of ``utils/convert.py`` and the
+  run's metadata as
   the JSON string ``run_config``; the same file format that
   ``scripts/export_torch_agent.py`` writes from a JAX checkpoint, and what
   ``drivers/evaluate --checkpoint`` reads.
@@ -29,8 +30,8 @@ import numpy as np
 import torch
 
 from crowdnav_tpu_torch.agents.replay import ReplayState
-from crowdnav_tpu_torch.utils.convert import (td3_state_from_arrays,
-                                              td3_state_to_arrays)
+from crowdnav_tpu_torch.utils.convert import (state_from_arrays,
+                                              state_to_arrays)
 from crowdnav_tpu_torch.utils.tree import to_device
 
 
@@ -104,7 +105,7 @@ def save_agent(path: str, agent, agent_state, step: int,
                meta: dict | None = None) -> str:
     """The agent alone at ``step``: ``<path>/agent_<step>.npz``."""
     os.makedirs(path, exist_ok=True)
-    arrays = td3_state_to_arrays(agent, agent_state)
+    arrays = state_to_arrays(agent, agent_state)
     if meta is not None:
         arrays["run_config"] = np.asarray(json.dumps(meta, sort_keys=True))
     out = os.path.join(path, f"agent_{step}.npz")
@@ -138,9 +139,10 @@ def read_arrays(path: str):
 
 
 def load_agent(path: str, agent, step: int | None = None):
-    """``(TD3State, metadata)`` from an agent file or directory."""
+    """``(learner state, metadata)`` from an agent file or directory, for
+    any of the port's agents (``utils/convert.state_from_arrays``)."""
     arrays, meta = read_arrays(agent_file(path, step))
-    return td3_state_from_arrays(agent, arrays), meta
+    return state_from_arrays(agent, arrays), meta
 
 
 def save_run_metadata(path: str, meta: dict):

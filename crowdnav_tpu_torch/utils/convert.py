@@ -1,26 +1,33 @@
-"""Flax actor parameters (numpy) <-> the port's actor ``state_dict``.
+"""Flax parameters (numpy) <-> the port's modules and learner states.
 
 Flax ``Dense`` kernels are (in, out); torch ``Linear`` weights are
-(out, in)."""
+(out, in). Every network of the port names its layers ``dense{i}`` where
+flax names them ``Dense_{i}`` (``models/networks.py``)."""
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 
-from crowdnav_tpu_torch.agents.optim import AdamState
-from crowdnav_tpu_torch.agents.td3 import TD3State
+from crowdnav_tpu_torch.agents.optim import AdamState, RMSpropState
 from crowdnav_tpu_torch.models.networks import unflatten
 
-_LAYERS = (("Dense_0", "dense0"), ("Dense_1", "dense1"),
-           ("Dense_2", "dense2"))
+
+def _dense_names(p) -> list:
+    """``[(flax layer, port layer)]`` of the ``Dense_i`` keys, in order."""
+    idx = sorted(int(m.group(1)) for k in p
+                 for m in [re.fullmatch(r"Dense_(\d+)", k)] if m)
+    return [(f"Dense_{i}", f"dense{i}") for i in idx]
 
 
 def flax_actor_to_state_dict(params) -> dict:
     """``{"params": {"Dense_i": {"kernel", "bias"}}}`` (or the inner dict)
-    -> ``{"dense{i}.weight", "dense{i}.bias"}`` float32 tensors."""
+    -> ``{"dense{i}.weight", "dense{i}.bias"}`` float32 tensors, for any
+    of the port's single networks (actor, Gaussian actor, Q-network)."""
     p = params.get("params", params)
     sd = {}
-    for flax_name, name in _LAYERS:
+    for flax_name, name in _dense_names(p):
         kernel = np.asarray(p[flax_name]["kernel"], np.float32)
         sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(
             kernel.T))
@@ -32,104 +39,112 @@ def flax_actor_to_state_dict(params) -> dict:
 def state_dict_to_flax_actor(sd: dict) -> dict:
     """Inverse of :func:`flax_actor_to_state_dict`."""
     out = {}
-    for flax_name, name in _LAYERS:
-        out[flax_name] = {
-            "kernel": sd[f"{name}.weight"].detach().cpu().numpy().T.copy(),
-            "bias": sd[f"{name}.bias"].detach().cpu().numpy().copy()}
+    n = len({k.split(".")[0] for k in sd})
+    for i in range(n):
+        out[f"Dense_{i}"] = {
+            "kernel": sd[f"dense{i}.weight"].detach().cpu().numpy().T.copy(),
+            "bias": sd[f"dense{i}.bias"].detach().cpu().numpy().copy()}
     return {"params": out}
 
 
 def npz_to_flax_actor(arrays) -> dict:
-    """The arrays of an exported actor file (keys ``Dense_i/kernel``,
+    """The arrays of an exported policy file (keys ``Dense_i/kernel``,
     ``Dense_i/bias``) -> flax's nested params."""
     out = {}
-    for flax_name, _ in _LAYERS:
-        out[flax_name] = {"kernel": arrays[f"{flax_name}/kernel"],
-                          "bias": arrays[f"{flax_name}/bias"]}
+    for key in arrays:
+        m = re.fullmatch(r"(Dense_\d+)/(kernel|bias)", key)
+        if m:
+            out.setdefault(m.group(1), {})[m.group(2)] = arrays[key]
     return {"params": out}
 
 
-# ---- the whole TD3 learner state ----
+# ---- whole learner states ----
 #
-# A JAX ``TD3State`` crosses over as a dict of numpy arrays under
+# A JAX agent state crosses over as a dict of numpy arrays under
 # slash-separated keys (``scripts/export_torch_agent.py`` writes them):
-#   {actor,critic}_{params,target}/[q1/|q2/]Dense_i/{kernel,bias}
-#   {actor,critic}_opt/{mu,nu}/[q1/|q2/]Dense_i/{kernel,bias}
-#   {actor,critic}_opt/count, update_count, explore_sigma, explore_eps
-# with flax's (in, out) kernels. The port's state holds each network as one
-# flat vector in its module's parameter order (``models/networks.layout``).
+#   <net field>/[q1/|q2/]Dense_i/{kernel,bias}     (flax's (in, out) kernels)
+#   <adam field>/{mu,nu}/..., <adam field>/count
+#   <rmsprop field>/nu/...
+#   scalars and per-env arrays under their field names
+# The port's state holds each network as one flat vector in its module's
+# parameter order (``models/networks.layout``). Each agent lists its
+# state's fields in ``STATE_FIELDS``: (field, kind, network), kinds
+# "net", "adam", "rmsprop", "int32", "float32" and "per_env" (an (N, ...)
+# float32 carry such as DDPG's OU state).
 
-_NETS = {"actor": ("",), "critic": ("q1/", "q2/")}
+
+def _flax_key(name: str) -> str:
+    """``"q1.dense0.weight"`` -> ``"q1/Dense_0/kernel"``."""
+    *head, layer, kind = name.split(".")
+    return "/".join(head + [f"Dense_{int(layer[5:])}",
+                            "kernel" if kind == "weight" else "bias"])
 
 
-def _flat_from_arrays(arrays, prefix: str, heads) -> torch.Tensor:
+def _flat_from_arrays(arrays, prefix: str, lay) -> torch.Tensor:
     parts = []
-    for head in heads:
-        for i in range(3):
-            key = f"{prefix}/{head}Dense_{i}"
-            parts.append(np.asarray(arrays[f"{key}/kernel"], np.float32).T
-                         .reshape(-1))
-            parts.append(np.asarray(arrays[f"{key}/bias"], np.float32)
-                         .reshape(-1))
+    for name, shape in lay:
+        a = np.asarray(arrays[f"{prefix}/{_flax_key(name)}"], np.float32)
+        parts.append((a.T if len(shape) == 2 else a).reshape(-1))
     return torch.from_numpy(np.concatenate(parts))
 
 
-def _arrays_from_flat(flat, lay, prefix: str, heads, out: dict):
+def _arrays_from_flat(flat, lay, prefix: str, out: dict):
     views = unflatten(flat.detach().cpu(), lay)
-    for head in heads:
-        mod = head.replace("/", ".")
-        for i in range(3):
-            key = f"{prefix}/{head}Dense_{i}"
-            out[f"{key}/kernel"] = views[f"{mod}dense{i}.weight"].numpy() \
-                .T.copy()
-            out[f"{key}/bias"] = views[f"{mod}dense{i}.bias"].numpy().copy()
+    for name, shape in lay:
+        v = views[name].numpy()
+        out[f"{prefix}/{_flax_key(name)}"] = (v.T if len(shape) == 2
+                                              else v).copy()
 
 
-def td3_state_from_arrays(agent, arrays):
-    """The port's ``TD3State`` on ``agent.device`` from exported arrays."""
+def state_from_arrays(agent, arrays):
+    """The agent's learner state on ``agent.device`` from exported arrays.
+    A per-env carry saved at another env count (DDPG's OU state of a
+    training run, read for evaluation) starts at zeros, as the JAX
+    package's ``restore_agent_state`` does."""
     dev = agent.device
 
-    def net(name, field):
-        return _flat_from_arrays(arrays, f"{name}_{field}",
-                                 _NETS[name]).to(dev)
+    def flat(prefix, net):
+        return _flat_from_arrays(arrays, prefix, agent.layouts[net]).to(dev)
 
-    def scalar(key, dtype):
-        return torch.tensor(np.asarray(arrays[key]).item(), dtype=dtype,
-                            device=dev)
-
-    def opt(name):
-        return AdamState(
-            mu=_flat_from_arrays(arrays, f"{name}_opt/mu",
-                                 _NETS[name]).to(dev),
-            nu=_flat_from_arrays(arrays, f"{name}_opt/nu",
-                                 _NETS[name]).to(dev),
-            count=scalar(f"{name}_opt/count", torch.int32))
-
-    return TD3State(
-        actor_params=net("actor", "params"),
-        actor_target=net("actor", "target"),
-        critic_params=net("critic", "params"),
-        critic_target=net("critic", "target"),
-        actor_opt=opt("actor"), critic_opt=opt("critic"),
-        update_count=scalar("update_count", torch.int32),
-        explore_sigma=scalar("explore_sigma", torch.float32),
-        explore_eps=scalar("explore_eps", torch.float32))
+    kw = {}
+    for field, kind, net in agent.STATE_FIELDS:
+        if kind == "net":
+            kw[field] = flat(field, net)
+        elif kind == "adam":
+            kw[field] = AdamState(
+                mu=flat(f"{field}/mu", net), nu=flat(f"{field}/nu", net),
+                count=torch.tensor(np.asarray(arrays[f"{field}/count"])
+                                   .item(), dtype=torch.int32, device=dev))
+        elif kind == "rmsprop":
+            kw[field] = RMSpropState(nu=flat(f"{field}/nu", net))
+        elif kind == "per_env":
+            a = np.asarray(arrays[field], np.float32)
+            if a.shape[0] != agent.n_envs:
+                a = np.zeros((agent.n_envs,) + a.shape[1:], np.float32)
+            kw[field] = torch.from_numpy(a.copy()).to(dev)
+        else:
+            kw[field] = torch.tensor(np.asarray(arrays[field]).item(),
+                                     dtype=getattr(torch, kind), device=dev)
+    return agent.state_cls(**kw)
 
 
-def td3_state_to_arrays(agent, state) -> dict:
-    """Inverse of :func:`td3_state_from_arrays` (numpy arrays)."""
+def state_to_arrays(agent, state) -> dict:
+    """Inverse of :func:`state_from_arrays` (numpy arrays)."""
     out = {}
-    lays = {"actor": agent.actor_layout, "critic": agent.critic_layout}
-    for name, heads in _NETS.items():
-        for field in ("params", "target"):
-            _arrays_from_flat(getattr(state, f"{name}_{field}"), lays[name],
-                              f"{name}_{field}", heads, out)
-        opt = getattr(state, f"{name}_opt")
-        for moment in ("mu", "nu"):
-            _arrays_from_flat(getattr(opt, moment), lays[name],
-                              f"{name}_opt/{moment}", heads, out)
-        out[f"{name}_opt/count"] = np.asarray(int(opt.count), np.int32)
-    out["update_count"] = np.asarray(int(state.update_count), np.int32)
-    for key in ("explore_sigma", "explore_eps"):
-        out[key] = np.asarray(float(getattr(state, key)), np.float32)
+    for field, kind, net in agent.STATE_FIELDS:
+        v = getattr(state, field)
+        lay = agent.layouts.get(net)
+        if kind == "net":
+            _arrays_from_flat(v, lay, field, out)
+        elif kind == "adam":
+            _arrays_from_flat(v.mu, lay, f"{field}/mu", out)
+            _arrays_from_flat(v.nu, lay, f"{field}/nu", out)
+            out[f"{field}/count"] = np.asarray(int(v.count), np.int32)
+        elif kind == "rmsprop":
+            _arrays_from_flat(v.nu, lay, f"{field}/nu", out)
+        elif kind == "per_env":
+            out[field] = v.detach().cpu().numpy().astype(np.float32)
+        else:
+            out[field] = np.asarray(v.item(), getattr(np, kind))
     return out
+

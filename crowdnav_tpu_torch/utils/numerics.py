@@ -26,12 +26,15 @@ these rules, and every kernel in ``kernels/csrc`` does the same arithmetic:
    ``kernels/csrc/libm_trig.cu``, which computes what GNU libc's float
    routines compute, operation for operation (``libm_f32.cuh``; PyTorch's
    CUDA functions differ from them on about a sixth of all inputs).
+5. ``jax.lax.rsqrt`` is not correctly rounded: XLA's CPU backend takes the
+   x86 ``rsqrtps`` estimate and one Newton step (:func:`rsqrt`).
 """
 from __future__ import annotations
 
 import ctypes
 import ctypes.util
 import functools
+import os
 
 import numpy as np
 import torch
@@ -149,3 +152,33 @@ def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 atan2.launches = 0
+
+
+_RSQRT_TABLE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets", "rsqrt_table.npy")
+
+
+@functools.lru_cache(maxsize=4)
+def _rsqrt_estimates(device) -> torch.Tensor:
+    """(8192,) int32 bit patterns of the ``rsqrtps`` estimate of x in
+    [1, 4), indexed by the exponent's last bit and the top 12 mantissa
+    bits (``scripts/rsqrt_table.py`` wrote the mantissas)."""
+    mant = np.load(_RSQRT_TABLE).astype(np.int32)
+    return torch.from_numpy((mant << 11) | (126 << 23)).to(device)
+
+
+def rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.rsqrt`` as XLA's CPU backend computes it: the ``rsqrtps``
+    estimate ``y`` (12 bits, from the table of the host the tests compare
+    with), then ``fma(-0.5 y, fma(x y, y, -1), y)`` for positive normal
+    ``x``; the estimate itself (+-inf, 0 or NaN) for the other classes.
+    The same integer and float64 operations on either device."""
+    bits = x.contiguous().view(torch.int32)
+    biased = (bits >> 23) & 255
+    est = _rsqrt_estimates(x.device)[(bits >> 11) & 0x1FFF]
+    y = (est - (((biased - 127) >> 1) << 23)).view(torch.float32)
+    refined = fma(y * -0.5, fma(x * y, y, -1.0), y)
+    normal = (bits > 0) & (biased > 0) & (biased < 255)
+    subnormal = (biased == 0) & (x != 0)
+    other = torch.rsqrt(torch.where(subnormal, x * 0.0, x))
+    return torch.where(normal, refined, other)

@@ -34,7 +34,7 @@ def _raycast_args(n, p, seed=0):
             nm.f32(CFG.max_scan_range))
 
 
-@pytest.mark.parametrize("p", [0, 3, 14])
+@pytest.mark.parametrize("p", [0, 3, 14, 6, 20])
 def test_raycast_bytes_are_the_plain_tensors(p):
     args = _raycast_args(7, p)
     out = lidar.raycast_plain(*args)
@@ -72,7 +72,7 @@ def test_track_cp_topk_fields_are_the_plain_tensors_rows():
     assert [row for _, row in f_out] == [t.nbytes // n for t in outputs]
 
 
-@pytest.mark.parametrize("p", [0, 14])
+@pytest.mark.parametrize("p", [0, 14, 6, 20])
 def test_raycast_ops_by_hand(p):
     n, hits = 3, 11
     per_beam = 6 + 5 + 2 + 2            # direction, walls, selects, clip
@@ -80,6 +80,39 @@ def test_raycast_ops_by_hand(p):
     assert roofline.raycast_work(n, B, p, hits)[1] == by_hand
     if p == 14:
         assert by_hand == 3 * B * 85 + 33 + 210
+
+
+@pytest.mark.parametrize("world,behavior", [("crowd_sparse", "random"),
+                                            ("test_20", "random_20")])
+def test_raycast_work_on_the_new_paths(world, behavior):
+    """The raycast's shapes on the paths of DDPG, SAC and DQN and of the
+    evaluate suites: P = 6 (``crowd_sparse``) and P = 20 in the 5 m room
+    with ``min_scan_range`` 0 (``test_20``); the work count's bytes are
+    the plain version's tensors there, and its hits those of the plain
+    version's circle test."""
+    cfg = make_config(world, behavior)
+    n, p = 11, cfg.n_peds
+    rng = np.random.default_rng(2)
+    h = cfg.room_half_inner - cfg.robot_radius
+    pos = torch.from_numpy(rng.uniform(-h, h, (n, 2)).astype(np.float32))
+    yaw = torch.from_numpy(rng.uniform(-np.pi, np.pi, n).astype(np.float32))
+    peds = torch.from_numpy(rng.uniform(-h, h, (n, p, 2)).astype(
+        np.float32))
+    ca, sa = lidar.beam_tables(cfg.n_scans)
+    r2 = nm.f32(cfg.ped_radius ** 2)
+    args = (pos, nm.cos(yaw), nm.sin(yaw), ca, sa, peds,
+            nm.f32(cfg.room_half_inner), r2, nm.f32(cfg.lidar_min_range),
+            nm.f32(cfg.max_scan_range))
+    out = lidar.raycast_plain(*args)
+    assert out.shape == (n, cfg.n_scans)
+    nbytes, ops = roofline.raycast_work(n, cfg.n_scans, p,
+                                        roofline.raycast_hits(*args[:6], r2))
+    assert nbytes == sum(t.nbytes for t in args[:6] + (out,))
+    # every beam of a hit pair counts its root: the hits are the pairs
+    # whose discriminant is >= 0, a subset of the n x B x P pairs
+    hits = roofline.raycast_hits(*args[:6], r2)
+    assert 0 < hits < n * cfg.n_scans * p
+    assert ops == (n * cfg.n_scans * (15 + 5 * p) + 3 * hits + 5 * n * p)
 
 
 def test_raycast_hits_counts_the_rays_that_meet_a_circle():

@@ -75,13 +75,13 @@ def _agents(**kw):
 
 def to_port(tagent, jstate):
     arrays = export_module().state_arrays(jax.tree.map(np.asarray, jstate))
-    return convert.td3_state_from_arrays(tagent, arrays)
+    return convert.state_from_arrays(tagent, arrays)
 
 
 def to_jax(tagent, tstate, jtemplate):
     """The port's ``TD3State`` as a JAX ``TD3State`` of ``jtemplate``'s
     structure and dtypes (the inverse of :func:`to_port`)."""
-    arrays = convert.td3_state_to_arrays(tagent, tstate)
+    arrays = convert.state_to_arrays(tagent, tstate)
 
     def tree(t, prefix):
         return {k: tree(v, f"{prefix}/{k}") if isinstance(v, dict)
@@ -294,8 +294,8 @@ def test_td3_state_conversion_round_trips():
     jstate, _ = jax.jit(jagent.update)(jstate, _jbatch(b),
                                       jax.random.PRNGKey(1))
     arrays = export_module().state_arrays(jax.tree.map(np.asarray, jstate))
-    tstate = convert.td3_state_from_arrays(tagent, arrays)
-    back = convert.td3_state_to_arrays(tagent, tstate)
+    tstate = convert.state_from_arrays(tagent, arrays)
+    back = convert.state_to_arrays(tagent, tstate)
     assert set(back) == set(arrays)
     for k, v in arrays.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)

@@ -43,7 +43,7 @@ from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv as TCrowdEnv
 from crowdnav_tpu_torch.parallel.runtime import (StepDraws, Trainer,
                                                  TrainerConfig)
 from crowdnav_tpu_torch.utils import checkpoint as tckpt
-from crowdnav_tpu_torch.utils.convert import td3_state_to_arrays
+from crowdnav_tpu_torch.utils.convert import state_to_arrays
 from crowdnav_tpu_torch.utils.error_bounds import check_update
 from crowdnav_tpu_torch.utils.logging import EpisodeLogger
 from test_torch_replay import _bits, _tbits
@@ -231,14 +231,14 @@ def test_agent_checkpoint_equals_restore_agent_state(tmp_path):
     tstate, tmeta = tckpt.load_agent(out, tagent)
     assert tmeta == meta
     assert int(tstate.update_count) == int(jstate.update_count) > 0
-    got = td3_state_to_arrays(tagent, tstate)
+    got = state_to_arrays(tagent, tstate)
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     path = tckpt.save_agent(str(tmp_path / "agent"), tagent, tstate, 7, meta)
     back, _ = tckpt.load_agent(str(tmp_path / "agent"), tagent)
     assert path.endswith("agent_7.npz")
-    for k, v in td3_state_to_arrays(tagent, back).items():
+    for k, v in state_to_arrays(tagent, back).items():
         np.testing.assert_array_equal(v, got[k], err_msg=k)
 
 
@@ -343,7 +343,8 @@ def test_full_checkpoint_round_trips(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--algo", "ddpg"], ["--n-devices", "2"], ["--multihost"],
+    ["--algo", "ddpg", "--learner-dtype", "bfloat16"], ["--n-devices", "2"],
+    ["--multihost"],
     ["--profile-dir", "x"], ["--actuation-noise", "0.1"],
     ["--dt-jitter", "0.1"], ["--lidar-noise", "0.01"],
     ["--learner-dtype", "bfloat16"], ["--risk-backend", "pallas"]])

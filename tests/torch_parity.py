@@ -164,3 +164,56 @@ def assert_chain_match(got, ref, msg=""):
         else:
             np.testing.assert_allclose(g, r, rtol=1e-6, atol=1e-6,
                                        err_msg=f"{msg} {name}")
+
+
+def export_module():
+    """``scripts/export_torch_agent.py`` as a module (it is not a
+    package's)."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "export_torch_agent",
+        os.path.join(root, "scripts", "export_torch_agent.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def state_to_port(agent, jstate):
+    """A JAX agent state (any algorithm) as the port's, through the
+    exported arrays."""
+    from crowdnav_tpu_torch.utils import convert
+    arrays = export_module().state_arrays(jax.tree.map(np.asarray, jstate))
+    return convert.state_from_arrays(agent, arrays)
+
+
+def state_to_jax(agent, tstate, jtemplate):
+    """The port's state as a JAX agent state of ``jtemplate``'s structure
+    and dtypes (the inverse of :func:`state_to_port`)."""
+    from crowdnav_tpu_torch.utils import convert
+    arrays = convert.state_to_arrays(agent, tstate)
+
+    def tree(t, prefix):
+        return {k: tree(v, f"{prefix}/{k}") if isinstance(v, dict)
+                else jnp.asarray(arrays[f"{prefix}/{k}"], v.dtype)
+                for k, v in t.items()}
+
+    kw = {}
+    for f in dataclasses.fields(jtemplate):
+        v = getattr(jtemplate, f.name)
+        if isinstance(v, dict):
+            kw[f.name] = {"params": tree(v["params"], f.name)}
+        elif isinstance(v, tuple):
+            inner = v[0]
+            rep = {"nu": {"params": tree(inner.nu["params"],
+                                         f"{f.name}/nu")}}
+            if hasattr(inner, "mu"):
+                rep["mu"] = {"params": tree(inner.mu["params"],
+                                            f"{f.name}/mu")}
+                rep["count"] = jnp.asarray(arrays[f"{f.name}/count"],
+                                           inner.count.dtype)
+            kw[f.name] = (inner._replace(**rep),) + tuple(v[1:])
+        else:
+            kw[f.name] = jnp.asarray(arrays[f.name], v.dtype)
+    return jtemplate.replace(**kw)
