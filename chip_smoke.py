@@ -9,53 +9,71 @@ Phases, each printing one JSON line:
 2. ``build``: the one ``nvcc`` call that builds every kernel of the port,
    and beside it, started together, the build of the kernels' first designs
    (``scripts/first_design_kernels/``), kept as a timing baseline;
-3. ``raycast``: the raycast kernel against its plain version on the card,
-   at the shapes of every path (14 pedestrians; the placeholder of an
-   empty room; 6 on ``crowd_sparse``; 20 in the 5 m room of ``test_20``),
-   then its device time at each;
-4. ``track_cp_topk``: the tracker -> CP -> top-K kernel against its plain
-   version, on random populations and edge cases (also at K = 1 and at
-   sizes the kernel takes at run time), then its device time;
-5. ``libm``: the C-library trig kernel (``cos``, ``sin``, ``atan2`` as the
+3. ``raycast``: the raycast kernel (its XLA form) against its plain
+   version on the card, at the shapes of every path (14 pedestrians; the
+   placeholder of an empty room; 6 on ``crowd_sparse``; 20 in the 5 m room
+   of ``test_20``), then its device time at each;
+4. ``track_cp_topk``: the tracker -> CP -> top-K kernel (its XLA form)
+   against its plain version, on random populations and edge cases (also
+   at K = 1 and at sizes the kernel takes at run time), then its device
+   time;
+5. ``kernel_forms``: the raycast's Pallas form and the tracker kernel's
+   Pallas and strict forms against their plain versions, bit for bit, at
+   1,024 and 16,384 envs and the other shapes, then their device times;
+6. ``libm``: the C-library trig kernel (``cos``, ``sin``, ``atan2`` as the
    host's C library computes them) against the library on the CPU at the
    step's shapes, and its device time;
-6. ``evaluate``: the port's evaluation driver, greedy TD3 on suite
+7. ``evaluate``: the port's evaluation driver, greedy TD3 on suite
    ``train`` with the exported ``final_full`` actor, 1,024 envs x 500 steps,
    with each kernel's launch count on that run;
-7. ``train``: the training path at full width (16,384 envs, 32 updates x
-   batch 4,096, bfloat16 replay, the epsilon spectrum of the flagship
-   recipe) through the functions ``drivers/train`` calls: one warm-up and
-   two timed chunks of 64 steps, each kernel's launches, the step's time
-   split, peak memory; then the card against the CPU at 256 envs, every
-   draw made once on the CPU: env states and the replay ring bit-equal;
-   before each step the card's learner state is set to the CPU's, and
-   every update the card's trainer makes is held to the CPU's update of
-   the same state within the derived float32 bound
+8. ``train``: the default configuration's training path at full width
+   (16,384 envs, 32 updates x batch 4,096, bfloat16 replay, the epsilon
+   spectrum of the flagship recipe) through the functions ``drivers/train``
+   calls: one warm-up and one timed chunk of 64 steps, each kernel's
+   launches, the step's time split, peak memory; then the card against
+   the CPU at 256 envs, every draw made once on the CPU: env states and
+   the replay ring bit-equal; before each step the card's learner state
+   is set to the CPU's, and every update the card's trainer makes is held
+   to the CPU's update of the same state within the derived float32 bound
    (``utils/error_bounds.py``);
-8. ``train_agents``: DDPG, SAC and DQN the same way, each at the widths of
+9. ``train_pallas``: the main path, the ``bench.py`` cell's
+   configuration (``risk_backend="pallas"``) at the same width, one
+   warm-up and two timed chunks;
+10. ``train_forms``: the Pallas raycast with the Pallas tracker and the
+   three noise knobs, and the strict quirks, each one timed chunk of
+   training at 1,024 envs;
+11. ``bf16_learner``: TD3's bfloat16 learner, card against CPU, each
+   update within the derived bfloat16 bound;
+12. ``tabular``: ``drivers/train_tabular`` (Q-learning, SARSA) on the card;
+13. ``train_agents``: DDPG, SAC and DQN the same way, each at the widths of
    its JAX record (DDPG 2,048 envs x 16 updates x batch 1,024 on
    ``crowd_dense``; SAC and DQN 512 envs x 32 updates x batch 64 on the
-   simple env), then the card against the CPU at 64 envs;
-9. ``evaluate_agents``: greedy evaluation of the three committed policies
+   simple env), one timed chunk each, then the card against the CPU at
+   64 envs;
+14. ``evaluate_agents``: greedy evaluation of the three committed policies
    (``crowdnav_tpu_torch/assets/``) through ``drivers/evaluate``, 256 envs
    x 500 steps, each Wilson 95% interval held to overlap its JAX record's;
-10. ``kernels``: one line with each kernel's times, bounds and launches on
-   every path.
+15. ``kernels``: one line with each kernel form's times, bounds and
+   launches on every path.
 
 Before them, ``step_parity`` holds the env step on the card against the
-step on the CPU: 1,024 envs x 50 steps of ``crowd_dense``/``crowd`` with
-the ``final_full`` actor's greedy actions, and 1,024 envs x 60 steps of
-``SimpleEnv`` on ``crowd_sparse``/``random`` in each action mode, both
-sides stepped from the same CPU state every step, every observation and
-state element bit-equal.
+step on the CPU: 1,024 envs x 40 steps of ``crowd_dense``/``crowd`` with
+the ``final_full`` actor's greedy actions, 20 steps each of the Pallas
+backends with the three noise knobs and of the strict quirks, and 1,024
+envs x 50 steps of ``SimpleEnv`` on ``crowd_sparse``/``random`` in each
+action mode (and 20 steps with the strict quirks, the Pallas raycast and
+the noise knobs), both sides stepped from the same CPU state with the
+same draws every step, every observation and state element bit-equal.
 
 Kernel times are device time alone (``kernels/timing.py``): a burst of
 wrapper calls queued behind ``torch.cuda._sleep``, over input copies that
 keep each launch's bytes out of the L2 cache, at 1,024 envs (the evaluate
 path) and 16,384 envs (the training batch of ``bench.py``). ``ms`` and
-``bound_ms`` are at 16,384 envs; ``launches`` counts the TD3 training
-run, ``launches_evaluate`` the TD3 evaluation, ``launches_train_<algo>``
-and ``launches_evaluate_<algo>`` the other learners' runs.
+``bound_ms`` are at 16,384 envs; ``launches`` counts the run of the path
+that runs the form (``launches_path``), ``launches_<path>`` every
+training run, ``launches_evaluate`` the TD3 evaluation,
+``launches_train_<algo>`` and ``launches_evaluate_<algo>`` the other
+learners' runs.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; without a CUDA device it fails at once.
@@ -112,20 +130,33 @@ def wilson(k, n, z=1.96):
     return [round(mid - half, 4), round(mid + half, 4)]
 
 
+# the kernels (and kernel forms) of the default configuration's paths
+XLA_KERNELS = ("raycast", "track_cp_topk", "libm_sincos", "libm_atan2")
+
+
 def _reset_launches():
-    from crowdnav_tpu_torch.ops.lidar import scan_batch
+    from crowdnav_tpu_torch.ops.lidar import scan_batch, scan_batch_pallas
     from crowdnav_tpu_torch.ops.risk_kernel import track_cp_topk_batch
     from crowdnav_tpu_torch.utils import numerics as nm
-    for fn in (scan_batch, track_cp_topk_batch, nm.sincos, nm.atan2):
+    for fn in (scan_batch, scan_batch_pallas, track_cp_topk_batch,
+               nm.sincos, nm.atan2):
         fn.launches = 0
+    for form in track_cp_topk_batch.form_launches:
+        track_cp_topk_batch.form_launches[form] = 0
 
 
 def _read_launches():
-    from crowdnav_tpu_torch.ops.lidar import scan_batch
+    """Launches of each kernel form: the raycast's XLA and Pallas forms,
+    the tracker kernel's XLA, Pallas and strict forms, the trig."""
+    from crowdnav_tpu_torch.ops.lidar import scan_batch, scan_batch_pallas
     from crowdnav_tpu_torch.ops.risk_kernel import track_cp_topk_batch
     from crowdnav_tpu_torch.utils import numerics as nm
+    forms = track_cp_topk_batch.form_launches
     return {"raycast": scan_batch.launches,
-            "track_cp_topk": track_cp_topk_batch.launches,
+            "raycast_pallas": scan_batch_pallas.launches,
+            "track_cp_topk": forms["xla"],
+            "track_cp_topk_pallas": forms["pallas"],
+            "track_cp_topk_strict": forms["strict"],
             "libm_sincos": nm.sincos.launches,
             "libm_atan2": nm.atan2.launches}
 
@@ -468,6 +499,146 @@ def phase_track(torch, dev, first_lib):
     return {"max_abs": worst, "shapes": shapes}
 
 
+def _same(torch, got, ref):
+    """Elements of two lists of tensors that differ bit for bit."""
+    return sum(_n_differ(torch, g, r) for g, r in zip(got, ref))
+
+
+def _moving_population(torch, cfg, n, dev, seed):
+    """:func:`_random_population` with segment centres off the 1/8 grid and
+    every track near a segment, so that tracks match and move."""
+    segs, tracks, pos, prev, cc = _random_population(torch, cfg, n, dev,
+                                                     seed)
+    g = torch.Generator(device=dev).manual_seed(100 + seed)
+    S, T = cfg.max_segments, cfg.max_tracks
+    cpos = torch.rand((n, S, 2), generator=g, device=dev) * 2.4 - 1.2
+    pick = torch.randint(0, S, (n, T), generator=g, device=dev)
+    near = torch.gather(cpos, 1, pick[..., None].expand(n, T, 2))
+    tpos = near + torch.randn((n, T, 2), generator=g, device=dev) * 0.02
+    segs = segs._replace(center_pos=cpos)
+    tracks = tracks.replace(
+        pos=tpos,
+        prev_pos=tpos + torch.randn((n, T, 2), generator=g, device=dev)
+        * 0.03)
+    return segs, tracks, pos, prev, cc
+
+
+def phase_kernel_forms(torch, dev):
+    """The kernels' Pallas and strict forms against their plain versions on the
+    card, bit for bit: the raycast's Pallas form (P = 14, the placeholder,
+    P = 6, P = 20 in the 5 m room) and the tracker kernel's Pallas and
+    strict forms (random, moving and edge populations, K = 1 and sizes
+    taken at run time), at 1,024 and 16,384 envs; then each form's device
+    time, plain time and bound at the main path's shapes."""
+    from crowdnav_tpu_torch.envs.config import make_config
+    from crowdnav_tpu_torch.kernels import build, roofline, timing
+    from crowdnav_tpu_torch.ops import lidar, risk
+    from crowdnav_tpu_torch.ops.risk_kernel import track_cp_topk_batch
+    cfg = make_config("crowd_dense", "crowd")
+    big = make_config("test_20", "random_20")
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def u(shape, lo, hi):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    out = {"raycast_pallas": {"cases": {}, "shapes": {}},
+           "track_cp_topk_pallas": {"cases": {}, "shapes": {}},
+           "track_cp_topk_strict": {"cases": {}, "shapes": {}}}
+    rc = out["raycast_pallas"]
+    for n in SHAPES:
+        for p, c in ((14, cfg), (0, cfg), (6, cfg), (20, big)):
+            h = c.room_half_inner - c.robot_radius
+            pos, yaw = u((n, 2), -h, h), u((n,), -math.pi, math.pi)
+            peds = torch.full((n, 1, 2), 1e3, device=dev) if p == 0 \
+                else u((n, p, 2), -h, h)
+            consts = lidar._consts(c.ped_radius, c.room_half_inner,
+                                   c.max_scan_range, c.lidar_min_range)
+            args = (pos, yaw, peds, c.n_scans, *consts)
+            got = build.raycast_pallas(*args)
+            ref = lidar.raycast_pallas_plain(*args)
+            torch.cuda.synchronize()
+            name = f"n{n}_p{p}" + ("_room5" if c is big else "")
+            bad = _n_differ(torch, got, ref)
+            rc["cases"][name] = {"differing": bad}
+            if bad:
+                raise AssertionError(f"raycast_pallas {name}: {bad} "
+                                     f"elements differ from the plain "
+                                     f"version")
+            if p in (14, 20) or (p == 6 and n == N_BIG):
+                hits = roofline.raycast_pallas_hits(pos, yaw, peds,
+                                                    c.n_scans, consts[1])
+                nbytes, ops32, ops64 = roofline.raycast_pallas_work(
+                    n, c.n_scans, p, hits)
+                bound, by = roofline.mixed_bound_ms(nbytes, ops32, ops64)
+                sets = timing.clone_args(args, timing.copies_for(nbytes))
+                key = n if p == 14 else name
+                rc["shapes"][key] = {
+                    "device_ms": timing.device_ms(build.raycast_pallas, sets,
+                                                  reps=100),
+                    "plain_ms": timing.stream_ms(lidar.raycast_pallas_plain,
+                                                 args),
+                    "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                    "f32_ops": ops32, "f64_ops": ops64, "hits": hits,
+                    "library_ms": None}
+    S, T, K = cfg.max_segments, cfg.max_tracks, cfg.k_obstacles
+    for form, over in (("pallas", {"risk_backend": "pallas"}),
+                       ("strict", {"strict_quirks": True})):
+        fc = dataclasses.replace(cfg, **over)
+        res = out[f"track_cp_topk_{form}"]
+        cases = {f"random_n{n}": _random_population(torch, cfg, n, dev,
+                                                    30 + i)
+                 for i, n in enumerate((N_ODD,) + SHAPES)}
+        cases.update({f"moving_n{n}": _moving_population(torch, cfg, n, dev,
+                                                         40 + i)
+                      for i, n in enumerate(SHAPES)})
+        cases["edges"] = _edge_population(torch, cfg, dev)
+        cfgs = dict.fromkeys(cases, fc)
+        for name, other in (("k1", dict(k_obstacles=1)),
+                            ("t20_k5", dict(max_tracks=20, k_obstacles=5))):
+            oc = dataclasses.replace(fc, **other)
+            cases[f"random_n{N_ODD}_{name}"] = _random_population(
+                torch, oc, N_ODD, dev, 50)
+            cfgs[f"random_n{N_ODD}_{name}"] = oc
+        for name, args in cases.items():
+            before = track_cp_topk_batch.form_launches[form]
+            got = _flatten(track_cp_topk_batch(cfgs[name], *args))
+            ref = _flatten(risk.track_cp_topk(cfgs[name], *args, form=form))
+            torch.cuda.synchronize()
+            if track_cp_topk_batch.form_launches[form] != before + 1:
+                raise AssertionError(f"track_cp_topk_{form} {name}: the "
+                                     f"wrapper did not launch the form")
+            bad = _same(torch, got, ref)
+            res["cases"][name] = {"differing": bad}
+            if bad:
+                raise AssertionError(f"track_cp_topk_{form} {name}: {bad} "
+                                     f"elements differ from the plain "
+                                     f"version")
+        for n in SHAPES:
+            segs, tracks, pos, prev, cc = cases[f"moving_n{n}"]
+            kargs = (fc, segs.confirmed, segs.is_obstacle, segs.center_pos,
+                     segs.center_dist, tracks.valid, tracks.pos,
+                     tracks.prev_pos, tracks.dist, tracks.speed, tracks.vel,
+                     pos, prev, cc)
+            nbytes, ops = roofline.track_cp_topk_work(n, S, T, K, form)
+            bound, by = roofline.bound_ms(nbytes, ops)
+            sets = timing.clone_args(kargs, timing.copies_for(nbytes))
+
+            def kernel(*a, form=form):
+                return build.track_cp_topk(*a, form=form)
+
+            def plain(*a, form=form, fc=fc):
+                return risk.track_cp_topk(fc, *a, form=form)
+            res["shapes"][n] = {
+                "device_ms": timing.device_ms(kernel, sets, reps=100),
+                "plain_ms": timing.stream_ms(plain, cases[f"moving_n{n}"]),
+                "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                "ops": ops, "library_ms": None}
+    for r in out.values():
+        r["max_abs"] = 0.0
+    emit({"phase": "kernel_forms", "timing": TIMING, **out})
+    return out
+
+
 def phase_evaluate(torch):
     from crowdnav_tpu_torch.drivers import evaluate
     ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -485,7 +656,7 @@ def phase_evaluate(torch):
         launches = _read_launches()
     s = results[0]
     for name, count in launches.items():
-        if count < EVAL_STEPS:
+        if name in XLA_KERNELS and count < EVAL_STEPS:
             raise AssertionError(f"{name} launched {count} times on the "
                                  f"evaluate path, expected >= {EVAL_STEPS}")
     rate = s["success_rate"]
@@ -563,6 +734,10 @@ TRAIN_FULL = TRAIN_FLAGS + [
     "--explore-eps", "1.0", "--explore-eps-min", "0.05",
     "--explore-spectrum", "--device", "cuda"]
 TRAIN_TIMED_CHUNKS = 2
+# the default configuration's training path: its depth cut to one timed
+# chunk, as the bench cell's configuration (risk_backend="pallas")
+# carries the two timed chunks of the main path
+TRAIN_XLA_TIMED_CHUNKS = 1
 SMALL = dict(n=256, steps=2, updates=2)
 
 
@@ -574,12 +749,13 @@ def _to_device(torch, state, dev):
         to_device(state, dev), gen=torch.Generator(device=dev).manual_seed(0))
 
 
-def _train_full(torch):
-    """The training path at full width: a warm-up chunk, then
-    ``TRAIN_TIMED_CHUNKS`` timed chunks with the launch counts and the
-    step's time split."""
+def _train_full(torch, extra=(), timed_chunks=TRAIN_TIMED_CHUNKS,
+                path=("raycast", "track_cp_topk")):
+    """The training path at full width with ``extra`` flags: a warm-up
+    chunk, then ``timed_chunks`` timed chunks with the launch counts and
+    the step's time split; the kernels of ``path`` launched once a step."""
     from crowdnav_tpu_torch.drivers import train as dtrain
-    args = dtrain.parser().parse_args(TRAIN_FULL)
+    args = dtrain.parser().parse_args(TRAIN_FULL + list(extra))
     trainer = dtrain.build(args)
     tc = trainer.tcfg
     t0 = time.perf_counter()
@@ -594,7 +770,7 @@ def _train_full(torch):
     trainer.spans = []
     _reset_launches()
     t0 = time.perf_counter()
-    for _ in range(TRAIN_TIMED_CHUNKS):
+    for _ in range(timed_chunks):
         state = trainer.rollout_chunk(state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -602,11 +778,13 @@ def _train_full(torch):
     split = trainer.span_ms()
     trainer.spans = None
     summary, state = trainer.drain_stats(state)
-    steps = TRAIN_TIMED_CHUNKS * tc.rollout_chunk
-    total_steps = (TRAIN_TIMED_CHUNKS + 1) * tc.rollout_chunk
+    steps = timed_chunks * tc.rollout_chunk
+    total_steps = (timed_chunks + 1) * tc.rollout_chunk
     size = int(state.replay.size)
     want_size = min(total_steps * tc.n_envs, trainer.buffer.capacity)
-    out = {"envs": tc.n_envs, "timed_steps": steps,
+    out = {"flags": " ".join(extra), "risk_backend":
+           trainer.env.cfg.risk_backend, "envs": tc.n_envs,
+           "timed_steps": steps,
            "updates_per_step": tc.updates_per_step,
            "batch": trainer.agent.cfg.batch_size,
            "reset_bank": tc.reset_bank, "warmup_chunk_s": warm_s,
@@ -627,7 +805,7 @@ def _train_full(torch):
                                  - actor0).abs().max()),
            "critic_moved": float((state.agent_state.critic_params
                                   - critic0).abs().max())}
-    for name in ("raycast", "track_cp_topk"):
+    for name in path:
         if launches[name] != steps:
             raise AssertionError(f"{name}: {launches[name]} launches in "
                                  f"{steps} env steps")
@@ -744,9 +922,21 @@ def _train_small(torch, dev):
 
 
 def phase_train(torch, dev):
-    full = _train_full(torch)
+    """The default configuration's training path (the XLA form of the
+    tracker kernel), then the card against the CPU."""
+    full = _train_full(torch, timed_chunks=TRAIN_XLA_TIMED_CHUNKS)
     small = _train_small(torch, dev)
     emit({"phase": "train", "full": full, "card_vs_cpu": small})
+    return full
+
+
+def phase_train_pallas(torch):
+    """The main path: the ``bench.py:103-178`` cell's
+    configuration, whose risk backend is ``"pallas"`` (``bench.py:206``),
+    at full width: the tracker kernel's Pallas form once a step."""
+    full = _train_full(torch, ["--risk-backend", "pallas"],
+                       path=("raycast", "track_cp_topk_pallas"))
+    emit({"phase": "train_pallas", "full": full})
     return full
 
 
@@ -768,6 +958,7 @@ AGENT_FLAGS = {
             "random", "--n-envs", str(AGENT_ENVS), "--chunk", "64",
             "--updates-per-step", "32", "--jitter", "1.0", "--seed", "0"]}
 AGENT_SMALL = dict(n=64, steps=2, updates=2)
+AGENT_TIMED_CHUNKS = 1    # after a warm-up chunk
 # each committed policy, its record (episodes, successes) and suite
 ASSETS = os.path.join(ROOT, "crowdnav_tpu_torch", "assets")
 AGENT_EVAL = {
@@ -786,8 +977,7 @@ SIMPLE_KERNELS = ("raycast", "libm_sincos", "libm_atan2")
 
 def _path_kernels(algo):
     """The kernels a path launches: the tracker only on the risk env."""
-    return tuple(_read_launches()) if algo in ("td3", "ddpg") \
-        else SIMPLE_KERNELS
+    return XLA_KERNELS if algo in ("td3", "ddpg") else SIMPLE_KERNELS
 
 
 def _train_agent(torch, algo):
@@ -811,7 +1001,7 @@ def _train_agent(torch, algo):
     trainer.spans = []
     _reset_launches()
     t0 = time.perf_counter()
-    for _ in range(TRAIN_TIMED_CHUNKS):
+    for _ in range(AGENT_TIMED_CHUNKS):
         state = trainer.rollout_chunk(state)
         if hasattr(agent, "decay_epsilon"):
             state = dataclasses.replace(
@@ -822,7 +1012,7 @@ def _train_agent(torch, algo):
     split = trainer.span_ms()
     trainer.spans = None
     summary, state = trainer.drain_stats(state)
-    steps = TRAIN_TIMED_CHUNKS * tc.rollout_chunk
+    steps = AGENT_TIMED_CHUNKS * tc.rollout_chunk
     metrics = {k: summary[k] for k in agent.METRICS}
     out = {"flags": " ".join(AGENT_FLAGS[algo]), "envs": tc.n_envs,
            "timed_steps": steps, "updates_per_step": tc.updates_per_step,
@@ -990,6 +1180,145 @@ def phase_train_agents(torch, dev):
     return {algo: r["full"]["launches"] for algo, r in result.items()}
 
 
+# the paths of the forms outside the bench cell, through the functions
+# drivers/train calls (flags, and config fields its command line does not
+# expose): the Pallas raycast with the Pallas tracker and the three noise
+# knobs, and the strict quirks (the XLA raycast, the strict tracker)
+FORM_PATHS = {
+    "pallas_backends_noise": (
+        ["--risk-backend", "pallas", "--actuation-noise", "0.05",
+         "--dt-jitter", "0.15", "--lidar-noise", "0.005"],
+        {"lidar_backend": "pallas"},
+        ("raycast_pallas", "track_cp_topk_pallas")),
+    "strict_quirks": ([], {"strict_quirks": True},
+                      ("raycast", "track_cp_topk_strict"))}
+FORM_CHUNK = 32
+FORM_FLAGS = ["--algo", "td3", "--world", "crowd_dense", "--behavior",
+              "crowd", "--n-envs", "1024", "--chunk", str(FORM_CHUNK),
+              "--updates-per-step", "2", "--batch-size", "1024",
+              "--learn-start", "1024", "--jitter", "1.0", "--buffer-size",
+              "65536", "--replay-obs-dtype", "bfloat16", "--seed", "0",
+              "--device", "cuda"]
+
+
+def phase_train_forms(torch):
+    """One timed chunk of each form's training path at 1,024 envs (after a
+    warm-up chunk): its kernels launched once a step, finite losses."""
+    from crowdnav_tpu_torch.drivers import train as dtrain
+    result = {}
+    for name, (flags, over, path) in FORM_PATHS.items():
+        trainer = dtrain.build(dtrain.parser().parse_args(FORM_FLAGS
+                                                          + flags), **over)
+        state = trainer.init(0)
+        state = trainer.rollout_chunk(state)
+        _, state = trainer.drain_stats(state)
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        state = trainer.rollout_chunk(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        summary, state = trainer.drain_stats(state)
+        steps = trainer.tcfg.rollout_chunk
+        metrics = {k: summary[k] for k in trainer.agent.METRICS}
+        n = trainer.tcfg.n_envs
+        result[name] = {"flags": " ".join(flags), "config": over,
+                        "envs": n,
+                        "steps": steps, "wall_s": wall,
+                        "env_steps_per_s": steps * n / wall,
+                        "launches": launches, "learn_metrics": metrics,
+                        "episodes": summary["episodes"]}
+        for k in path:
+            if launches[k] != steps:
+                raise AssertionError(f"{name}: {k} launched {launches[k]} "
+                                     f"times in {steps} steps")
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"{name}: losses not finite: {metrics}")
+    emit({"phase": "train_forms", **result})
+    return {name: r["launches"] for name, r in result.items()}
+
+
+BF16_BATCH = 1024
+BF16_UPDATES = 3
+
+
+def phase_bf16(torch, dev):
+    """TD3 with ``compute_dtype="bfloat16"`` at the flagship's widths
+    (398-dim state, 256 wide, batch 1,024): a chain of updates on the card,
+    each held to the CPU's update of the same state, batch and noise
+    within the derived bound of the bfloat16 learner
+    (``error_bounds.check_update`` under ``lowp``)."""
+    from crowdnav_tpu_torch.agents.replay import Transition
+    from crowdnav_tpu_torch.agents.td3 import TD3, TD3Config
+    from crowdnav_tpu_torch.utils.error_bounds import check_update
+    from crowdnav_tpu_torch.utils.tree import to_device
+    cpu = torch.device("cpu")
+    cfg = TD3Config(batch_size=BF16_BATCH, compute_dtype="bfloat16")
+    a_c, a_g = TD3(cfg, 398, device=cpu), TD3(cfg, 398, device=dev)
+    state = a_c.init_state(0)
+    g = torch.Generator().manual_seed(4)
+    shares = []
+    t0 = time.perf_counter()
+    for _ in range(BF16_UPDATES):
+        b = Transition(
+            obs=(torch.rand((BF16_BATCH, 398), generator=g) * 3 - 1.5
+                 ).to(torch.bfloat16),
+            action=torch.rand((BF16_BATCH, 2), generator=g)
+            * torch.tensor([0.22, 4.0]) - torch.tensor([0.0, 2.0]),
+            reward=torch.randn(BF16_BATCH, generator=g) * 5,
+            next_obs=(torch.rand((BF16_BATCH, 398), generator=g) * 3 - 1.5
+                      ).to(torch.bfloat16),
+            done=(torch.rand(BF16_BATCH, generator=g) < 0.1).float())
+        noise = torch.randn((BF16_BATCH, 2), generator=g)
+        new_g, _ = a_g.update(to_device(state, dev), to_device(b, dev),
+                              smoothing_noise=noise.to(dev))
+        new_c, m_c = a_c.update(state, b, smoothing_noise=noise)
+        shares.append(check_update(a_g, state, b, noise,
+                                   to_device(new_g, cpu), new_c, m_c))
+        state = new_c
+    out = {"batch": BF16_BATCH, "updates": BF16_UPDATES,
+           "max_bound_share": {k: max(sh[k] for sh in shares)
+                               for k in shares[0]},
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "bf16_learner", **out})
+    return out
+
+
+def phase_tabular(torch):
+    """``drivers/train_tabular`` on the card: Q-learning and SARSA on the
+    simple env's empty room, 64 envs x 2 chunks of 100 steps, the tables
+    on the device; the run's files and a greedy evaluation from the
+    table."""
+    from crowdnav_tpu_torch.drivers import train_tabular
+    result = {}
+    for algo in ("qlearn", "sarsa"):
+        with tempfile.TemporaryDirectory() as out:
+            t0 = time.perf_counter()
+            carry = train_tabular.main(
+                ["--algo", algo, "--n-envs", "64", "--chunk", "100",
+                 "--env-steps", "12800", "--jitter", "1.0", "--outdir", out,
+                 "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            table = carry.table
+            files = sorted(os.listdir(out))
+            train_tabular.main(
+                ["--algo", algo, "--n-envs", "64", "--chunk", "100",
+                 "--env-steps", "6400", "--no-learning", "--load",
+                 os.path.join(out, f"{algo}_qtable"), "--outdir", out,
+                 "--device", "cuda"])
+        visited = int(table.visited.sum())
+        result[algo] = {"device": str(table.q.device), "wall_s": wall,
+                        "visited_entries": visited, "files": files,
+                        "epsilon": float(table.epsilon)}
+        if table.q.device.type != "cuda" or visited == 0 or \
+                not torch.isfinite(table.q).all():
+            raise AssertionError(f"train_tabular {algo}: {result[algo]}")
+    emit({"phase": "tabular", **result})
+    return result
+
+
 def _overlap(a, b):
     return a[0] <= b[1] and b[0] <= a[1]
 
@@ -1044,8 +1373,20 @@ def phase_evaluate_agents(torch):
 
 
 PARITY_ENVS = 1024
-PARITY_STEPS = 50
-SIMPLE_PARITY_STEPS = 60
+PARITY_STEPS = 40
+SIMPLE_PARITY_STEPS = 50
+# the configurations of the kernels' other forms and of the noise knobs,
+# card vs CPU
+PARITY_FORM_STEPS = 20
+PARITY_FORMS = {
+    "pallas_backends_noise": dict(risk_backend="pallas",
+                                  lidar_backend="pallas",
+                                  actuation_noise=0.05, dt_jitter=0.15,
+                                  lidar_noise=0.005),
+    "strict_quirks": dict(strict_quirks=True)}
+PARITY_SIMPLE_FORM = dict(strict_quirks=True, lidar_backend="pallas",
+                          actuation_noise=0.05, dt_jitter=0.15,
+                          lidar_noise=0.005)
 TRIG_SAMPLES = 1 << 20
 
 
@@ -1081,11 +1422,8 @@ def phase_step_parity(torch, dev):
     from crowdnav_tpu_torch.drivers.evaluate import build_agent, \
         load_actor_file
     from crowdnav_tpu_torch.envs.config import make_config
-    from crowdnav_tpu_torch.envs import world
-    from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
     from crowdnav_tpu_torch.utils import numerics as nm
     from crowdnav_tpu_torch.utils.convert import flax_actor_to_state_dict
-    from crowdnav_tpu_torch.utils.tree import to_device, tree_leaves
     t0 = time.perf_counter()
     x, y = _trig_inputs(torch)
     trig = {}
@@ -1095,26 +1433,82 @@ def phase_step_parity(torch, dev):
         got = fn(*(a.to(dev) for a in args))
         trig[name] = _n_differ(torch, got, ref)
 
+    cpu = torch.device("cpu")
+    params, meta = load_actor_file(ACTOR_FILE)
+    agent = build_agent(meta["agent_config"],
+                        make_config("crowd_dense", "crowd").state_dim_risk,
+                        cpu)
+    agent.load_actor(flax_actor_to_state_dict(params))
     cfg = make_config("crowd_dense", "crowd", jitter=1.0)
+    crowd = _crowd_parity(torch, dev, cfg, agent, PARITY_STEPS)
+    counts, first, n_elems = crowd["by_field"], crowd["first_difference"], \
+        crowd["compared_elements"]
+    forms = {}
+    for name, over in PARITY_FORMS.items():
+        forms[name] = _crowd_parity(
+            torch, dev, make_config("crowd_dense", "crowd", jitter=1.0,
+                                    **over), agent, PARITY_FORM_STEPS)
+    total = sum(counts.values())
+    simple = {mode: _simple_parity(torch, dev, mode == "discrete")
+              for mode in ("continuous", "discrete")}
+    simple["strict_noise_pallas_lidar"] = _simple_parity(
+        torch, dev, False, steps=PARITY_FORM_STEPS, **PARITY_SIMPLE_FORM)
+    emit({"phase": "step_parity", "envs": PARITY_ENVS,
+          "steps": PARITY_STEPS, "world": "crowd_dense/crowd, jitter 1.0",
+          "differing_elements": total, "compared_elements": n_elems,
+          "first_difference": first,
+          "by_field": {k: v for k, v in counts.items() if v},
+          "forms": forms, "simple_env": simple,
+          "trig_samples": TRIG_SAMPLES, "trig_differing": trig,
+          "glibc": os.confstr("CS_GNU_LIBC_VERSION"),
+          "host_cpu": _cpu_model(), "seconds": time.perf_counter() - t0})
+    bad_simple = {m: r for m, r in simple.items() if r["differing_elements"]}
+    bad_forms = {m: r for m, r in forms.items() if r["differing_elements"]}
+    if total or any(trig.values()) or bad_simple or bad_forms:
+        raise AssertionError(f"the card's step differs from the CPU's in "
+                             f"{total} elements (first: {first}); trig "
+                             f"samples differing: {trig}; SimpleEnv: "
+                             f"{bad_simple}; forms: {bad_forms}")
+
+
+def _noise(torch, cfg, n, gen):
+    """The step's noise knobs' draws, made once on the CPU for both
+    sides (an empty dict without knobs)."""
+    from crowdnav_tpu_torch.envs import world
+    from crowdnav_tpu_torch.envs.crowd_env import lidar_noise_draw
+    cpu = torch.device("cpu")
+    d = world.noise_draws(cfg, n, gen, cpu)
+    if cfg.lidar_noise > 0.0:
+        d["lidar"] = lidar_noise_draw(cfg, n, gen, cpu)
+    return d
+
+
+def _crowd_parity(torch, dev, cfg, agent, steps):
+    """``CrowdEnv`` with ``cfg``, ``PARITY_ENVS`` envs x ``steps`` steps of
+    the ``final_full`` actor's greedy actions, each step taken from the
+    same CPU state on both devices with the same crowd and noise draws:
+    the differing elements, by field, and the first difference."""
+    from crowdnav_tpu_torch.envs import world
+    from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
+    from crowdnav_tpu_torch.utils.tree import to_device, tree_leaves
     cpu = torch.device("cpu")
     env_c = CrowdEnv(cfg, device=cpu, seed=0)
     env_g = CrowdEnv(cfg, device=dev, seed=0)
     # the card's auto-reset template is the CPU's (the two generators
     # draw different numbers from one seed)
     env_g.template = to_device(env_c.template, dev)
-    params, meta = load_actor_file(ACTOR_FILE)
-    agent = build_agent(meta["agent_config"], env_c.obs_dim, cpu)
-    agent.load_actor(flax_actor_to_state_dict(params))
     gen = torch.Generator().manual_seed(0)
     state, obs = env_c.reset(PARITY_ENVS, gen)
-    counts, first, n_elems = {}, None, 0
-    for step in range(PARITY_STEPS):
+    counts, first, n_elems, resets = {}, None, 0, 0
+    for step in range(steps):
         act = agent.act(obs)
-        # the crowd's fresh velocities, drawn once for both sides
+        # the crowd's fresh velocities and the noise, drawn once
         vel = world.random_velocities(cfg, state.ped_pos.shape, gen, cpu)
-        out_c = env_c.step_batch(state, act, vel_draw=vel)
-        out_g = env_g.step_batch(to_device(state, dev),
-                                 act.to(dev), vel_draw=vel.to(dev))
+        noise = _noise(torch, cfg, PARITY_ENVS, gen)
+        out_c = env_c.step_batch(state, act, vel_draw=vel, noise=noise)
+        out_g = env_g.step_batch(
+            to_device(state, dev), act.to(dev), vel_draw=vel.to(dev),
+            noise={k: v.to(dev) for k, v in noise.items()})
         # in the order the step computes them: kinematics and crowd,
         # perception, observation, reward
         pairs = [(f"state.{n}", g, c) for (n, g), (_, c) in zip(
@@ -1130,44 +1524,37 @@ def phase_step_parity(torch, dev):
                 first = {"step": step, "field": name, "elements": d,
                          "fields": [n for n, g2, c2 in pairs
                                     if _n_differ(torch, g2, c2)]}
+        resets += int(state.done.sum())
         state, obs = out_c.state, out_c.obs
-    total = sum(counts.values())
-    simple = {mode: _simple_parity(torch, dev, mode == "discrete")
-              for mode in ("continuous", "discrete")}
-    emit({"phase": "step_parity", "envs": PARITY_ENVS,
-          "steps": PARITY_STEPS, "world": "crowd_dense/crowd, jitter 1.0",
-          "differing_elements": total, "compared_elements": n_elems,
-          "first_difference": first,
-          "by_field": {k: v for k, v in counts.items() if v},
-          "simple_env": simple,
-          "trig_samples": TRIG_SAMPLES, "trig_differing": trig,
-          "glibc": os.confstr("CS_GNU_LIBC_VERSION"),
-          "host_cpu": _cpu_model(), "seconds": time.perf_counter() - t0})
-    bad_simple = {m: r for m, r in simple.items() if r["differing_elements"]}
-    if total or any(trig.values()) or bad_simple:
-        raise AssertionError(f"the card's step differs from the CPU's in "
-                             f"{total} elements (first: {first}); trig "
-                             f"samples differing: {trig}; SimpleEnv: "
-                             f"{bad_simple}")
+    return {"config": {k: getattr(cfg, k) for k in
+                       ("risk_backend", "lidar_backend", "strict_quirks",
+                        "actuation_noise", "dt_jitter", "lidar_noise")},
+            "envs": PARITY_ENVS, "steps": steps, "auto_resets": resets,
+            "differing_elements": sum(counts.values()),
+            "compared_elements": n_elems, "first_difference": first,
+            "by_field": {k: v for k, v in counts.items() if v}}
 
 
-def _simple_parity(torch, dev, discrete):
-    """``SimpleEnv`` on ``crowd_sparse``/``random`` (jitter 1.0), each step
-    taken from the same CPU state on both devices with the same random
-    actions (indices into the discrete table, or (lin, ang) from the box)
-    and crowd velocities; the number of differing elements."""
+def _simple_parity(torch, dev, discrete, steps=None, **over):
+    """``SimpleEnv`` on ``crowd_sparse``/``random`` (jitter 1.0, and the
+    config overrides ``over``), each step taken from the same CPU state on
+    both devices with the same random actions (indices into the discrete
+    table, or (lin, ang) from the box), crowd velocities and noise; the
+    number of differing elements."""
     from crowdnav_tpu_torch.envs import world
     from crowdnav_tpu_torch.envs.config import make_config
     from crowdnav_tpu_torch.envs.simple_env import SimpleEnv
     from crowdnav_tpu_torch.utils.tree import to_device, tree_leaves
-    cfg = make_config("crowd_sparse", "random", jitter=1.0, max_steps=40)
+    cfg = make_config("crowd_sparse", "random", jitter=1.0, max_steps=40,
+                      **over)
+    steps = SIMPLE_PARITY_STEPS if steps is None else steps
     cpu = torch.device("cpu")
     env_c, env_g = SimpleEnv(cfg, cpu), SimpleEnv(cfg, dev)
     env_g.template = to_device(env_c.template, dev)
     gen = torch.Generator().manual_seed(3)
     state, obs = env_c.reset(PARITY_ENVS, gen)
     differ, n_elems, first, resets = 0, 0, None, 0
-    for step in range(SIMPLE_PARITY_STEPS):
+    for step in range(steps):
         if discrete:
             act = torch.randint(0, 3, (PARITY_ENVS,), generator=gen)
             fn_c, fn_g = env_c.step_discrete, env_g.step_discrete
@@ -1176,9 +1563,11 @@ def _simple_parity(torch, dev, discrete):
                 * torch.tensor([0.22, 4.0]) - torch.tensor([0.0, 2.0])
             fn_c, fn_g = env_c.step_batch, env_g.step_batch
         vel = world.random_velocities(cfg, state.ped_pos.shape, gen, cpu)
-        out_c = fn_c(state, act, vel_draw=vel)
+        noise = _noise(torch, cfg, PARITY_ENVS, gen)
+        out_c = fn_c(state, act, vel_draw=vel, noise=noise)
         out_g = fn_g(to_device(state, dev), act.to(dev),
-                     vel_draw=vel.to(dev))
+                     vel_draw=vel.to(dev),
+                     noise={k: v.to(dev) for k, v in noise.items()})
         pairs = [(f"state.{n}", g, c) for (n, g), (_, c) in zip(
             tree_leaves(out_g.state), tree_leaves(out_c.state))]
         pairs += [("obs", out_g.obs, out_c.obs),
@@ -1193,12 +1582,15 @@ def _simple_parity(torch, dev, discrete):
         resets += int(state.done.sum())
         state = out_c.state
     return {"world": "crowd_sparse/random, jitter 1.0, max_steps 40",
-            "envs": PARITY_ENVS, "steps": SIMPLE_PARITY_STEPS,
+            "overrides": over, "envs": PARITY_ENVS, "steps": steps,
             "auto_resets": resets, "differing_elements": differ,
             "compared_elements": n_elems, "first_difference": first}
 
 
 def _cpu_model():
+    """The host CPU: model, vendor, FMA and AVX2, and the ``rsqrt`` form
+    the port replays on it (``utils/numerics.rsqrt_form``)."""
+    from crowdnav_tpu_torch.utils import numerics as nm
     try:
         with open("/proc/cpuinfo") as fp:
             info = fp.read()
@@ -1208,42 +1600,67 @@ def _cpu_model():
                   info.splitlines() if line.startswith("model name")), None)
     flags = next((line.split(":", 1)[1].split() for line in
                   info.splitlines() if line.startswith("flags")), [])
-    return {"model": model, "fma": "fma" in flags, "avx2": "avx2" in flags}
+    form = nm.RSQRT_FORMS.get(nm.cpu_vendor())
+    return {"model": model, "vendor": nm.cpu_vendor(),
+            "fma": "fma" in flags, "avx2": "avx2" in flags,
+            "rsqrt_form": None if form is None else
+            {"table": form.table, "newton_steps": form.newton_steps}}
 
 
 KERNELS = (
     ("raycast", "crowdnav_tpu_torch/kernels/csrc/raycast.cu",
      "crowdnav_tpu/ops/lidar_pallas.py:32",
-     "_raycast_kernel, launched by scan_batch_pallas"),
+     "_raycast_kernel, launched by scan_batch_pallas (the XLA form of "
+     "lidar.scan)", "train_pallas"),
+    ("raycast_pallas", "crowdnav_tpu_torch/kernels/csrc/raycast.cu",
+     "crowdnav_tpu/ops/lidar_pallas.py:32",
+     "_raycast_kernel, launched by scan_batch_pallas (its own arithmetic, "
+     "lidar_backend='pallas')", "pallas_backends_noise"),
     ("track_cp_topk", "crowdnav_tpu_torch/kernels/csrc/track_cp_topk.cu",
      "crowdnav_tpu/ops/risk_pallas.py:61",
-     "_kernel, launched by track_cp_topk_batch"),
+     "_kernel, launched by track_cp_topk_batch (the XLA chain's "
+     "arithmetic, risk_backend='xla')", "train"),
+    ("track_cp_topk_pallas",
+     "crowdnav_tpu_torch/kernels/csrc/track_cp_topk.cu",
+     "crowdnav_tpu/ops/risk_pallas.py:61",
+     "_kernel, launched by track_cp_topk_batch (its own arithmetic, "
+     "risk_backend='pallas')", "train_pallas"),
+    ("track_cp_topk_strict",
+     "crowdnav_tpu_torch/kernels/csrc/track_cp_topk.cu",
+     "crowdnav_tpu/ops/risk_pallas.py:61",
+     "_kernel's chain under strict_quirks (the XLA chain's strict first "
+     "track speed and top-K, crowdnav_tpu/ops/risk.py:349,388)",
+     "strict_quirks"),
     ("libm_sincos", "crowdnav_tpu_torch/kernels/csrc/libm_trig.cu",
      "crowdnav_tpu/envs/world.py:196",
      "no TPU kernel: the C library's cosf/sinf that the reference's CPU "
-     "step calls (world.py:196, ops/lidar.py:41, envs/crowd_env.py:127)"),
+     "step calls (world.py:196, ops/lidar.py:41, envs/crowd_env.py:127)",
+     "train_pallas"),
     ("libm_atan2", "crowdnav_tpu_torch/kernels/csrc/libm_trig.cu",
      "crowdnav_tpu/ops/geom.py:34",
      "no TPU kernel: the C library's atan2f that the reference's CPU step "
-     "calls (ops/geom.py:34, envs/world.py:143)"))
+     "calls (ops/geom.py:34, envs/world.py:143)", "train_pallas"))
 
 
-def kernel_line(smi, stats, train, evaluate, train_agents, eval_agents):
-    """One entry per kernel: device time, bound, plain and library times
-    at 16,384 envs (and every measured shape), launches on the training
-    run (the slice's main path), on the evaluate run, and on the training
-    and evaluation runs of DDPG, SAC and DQN."""
+def kernel_line(smi, stats, paths, evaluate, train_agents, eval_agents):
+    """One entry per kernel form: device time, bound, plain and library
+    times at 16,384 envs (and every measured shape); ``launches`` on the
+    path that runs the form (``launches_path`` names it: the bench cell's
+    training at full width with the Pallas tracker, the main
+    path; the default configuration's training; the forms' training
+    paths), and the launches on every other path: each training run, the
+    TD3 evaluation, DDPG's, SAC's and DQN's training and evaluation."""
     kernels = []
-    steps = train["timed_steps"]
-    for name, src, replaces, what in KERNELS:
+    for name, src, replaces, what, path in KERNELS:
         st = stats[name]
         big = st["shapes"][N_BIG]
         lib = big.get("library_ms")
+        run = paths[path]
         entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "tpu_kernel": f"{replaces} {what}",
-            "launches": train["launches"][name],
-            "launches_per_train_step": train["launches"][name] / steps,
+            "launches": run["launches"][name], "launches_path": path,
+            "launches_per_step": run["launches"][name] / run["steps"],
             "launches_evaluate": evaluate[name],
             "launches_per_evaluate_step": evaluate[name] / EVAL_STEPS,
             "max_abs_err": st["max_abs"], "max_abs_diff": st["max_abs"],
@@ -1251,6 +1668,8 @@ def kernel_line(smi, stats, train, evaluate, train_agents, eval_agents):
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"], "library_ms": lib,
             "card": smi, "timing": TIMING}
+        for other, r in paths.items():
+            entry[f"launches_{other}"] = r["launches"][name]
         if lib is None:
             entry["library_ms_reason"] = "no single PyTorch call computes it"
         else:
@@ -1294,12 +1713,23 @@ def main():
     phase_step_parity(torch, dev)
     stats = {"raycast": phase_raycast(torch, dev, first_lib),
              "track_cp_topk": phase_track(torch, dev, first_lib)}
+    stats.update(phase_kernel_forms(torch, dev))
     stats.update(phase_libm(torch, dev))
     evaluate = phase_evaluate(torch)
     train = phase_train(torch, dev)
+    train_pallas = phase_train_pallas(torch)
+    forms = phase_train_forms(torch)
+    phase_bf16(torch, dev)
+    phase_tabular(torch)
     train_agents = phase_train_agents(torch, dev)
     eval_agents = phase_evaluate_agents(torch)
-    emit({"kernels": kernel_line(smi, stats, train, evaluate, train_agents,
+    paths = {"train_pallas": {"launches": train_pallas["launches"],
+                              "steps": train_pallas["timed_steps"]},
+             "train": {"launches": train["launches"],
+                       "steps": train["timed_steps"]}}
+    for name, counts in forms.items():
+        paths[name] = {"launches": counts, "steps": FORM_CHUNK}
+    emit({"kernels": kernel_line(smi, stats, paths, evaluate, train_agents,
                                  eval_agents)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,8 @@ function also takes the draws, so that a test can feed the JAX package's.
 
 ``self.actor`` (a :class:`DeterministicActor`) is the greedy policy of the
 evaluation path; :meth:`TD3.act` with a ``state`` runs the state's actor.
+``compute_dtype="bfloat16"`` runs every network's matmuls in bfloat16
+(``models/networks.py``), as the JAX package's flax modules do.
 """
 from __future__ import annotations
 
@@ -34,6 +36,9 @@ from crowdnav_tpu_torch.models.networks import (DeterministicActor,
                                                 unflatten)
 from crowdnav_tpu_torch.utils import numerics as nm
 from crowdnav_tpu_torch.utils.device import resolve
+
+# TD3Config.compute_dtype -> the MLPs' torch dtype
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,16 +131,23 @@ class TD3:
 
     def __init__(self, cfg: TD3Config, obs_dim: int, action_dim: int = 2,
                  device="cuda"):
-        if cfg.compute_dtype != "float32":
-            raise ValueError("the port's learner computes in float32 "
-                             "(compute_dtype='bfloat16' is not ported)")
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of "
+                             f"{tuple(COMPUTE_DTYPES)}, got "
+                             f"{cfg.compute_dtype!r}")
+        # the MLPs' matmuls in bfloat16 with float32 sums; parameters,
+        # Adam, TD targets and losses stay float32
+        self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+        if self.dtype == torch.bfloat16:
+            torch.backends.cuda.matmul.\
+                allow_bf16_reduced_precision_reduction = False
         self.cfg = cfg
         self.obs_dim = obs_dim
         self.action_dim = action_dim
         self.device = resolve(device)
         self.actor = DeterministicActor(obs_dim, action_dim, cfg.hidden,
-                                        cfg.max_lin_vel,
-                                        cfg.max_ang_vel).to(self.device)
+                                        cfg.max_lin_vel, cfg.max_ang_vel,
+                                        self.dtype).to(self.device)
         self.actor.eval()
         self.actor_layout = layout(self.actor)
         self.critic_layout = layout(DoubleCritic(obs_dim, action_dim,
@@ -200,7 +212,7 @@ class TD3:
 
     def _actor(self, params: dict, obs):
         return actor_apply(params, obs, self.cfg.max_lin_vel,
-                           self.cfg.max_ang_vel)
+                           self.cfg.max_ang_vel, self.dtype)
 
     # ---- acting ----
     def exploration_draws(self, n: int, gen: torch.Generator):
@@ -247,7 +259,8 @@ class TD3:
                 raise ValueError("exploration needs a TD3State")
             if draws is None:
                 draws = self.exploration_draws(obs.shape[0], gen)
-            heads = actor_heads(self.actor_params(state.actor_params), obs)
+            heads = actor_heads(self.actor_params(state.actor_params), obs,
+                                self.dtype)
             action = self.explore(heads, state, *draws)
         elif state is None:
             action = self.actor(obs)
@@ -289,14 +302,15 @@ class TD3:
         noise = torch.clamp(smoothing_noise * nm.f32(cfg.policy_noise),
                             -clip, clip)
         tq1, tq2 = critic_apply(self.critic_params(state.critic_target),
-                                next_obs, next_action + noise)
+                                next_obs, next_action + noise,
+                                dtype=self.dtype)
         return batch.reward[:, None] + (1.0 - batch.done[:, None]) \
             * nm.f32(cfg.gamma) * torch.minimum(tq1, tq2)
 
     def critic_grad(self, critic_flat: torch.Tensor, obs, action, y):
         """``(loss, flat gradient)`` of the twin critics' TD loss."""
         def critic_loss(p):
-            q1, q2 = critic_apply(p, obs, action)
+            q1, q2 = critic_apply(p, obs, action, dtype=self.dtype)
             return ((q1 - y) ** 2).mean() + ((q2 - y) ** 2).mean()
 
         return value_and_grad(critic_loss, self.critic_params(critic_flat))
@@ -309,7 +323,7 @@ class TD3:
 
         def actor_loss(p):
             q1, = critic_apply(critic, obs, self._actor(p, obs),
-                               heads=("q1",))
+                               heads=("q1",), dtype=self.dtype)
             return -q1.mean()
 
         return value_and_grad(actor_loss, self.actor_params(actor_flat))

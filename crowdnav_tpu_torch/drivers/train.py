@@ -16,9 +16,12 @@ flagship recipe.
         --updates-per-step 32 --jitter 1.0 --outdir results/torch_dqn
 
 Options of the JAX driver whose modules are not ported raise: several
-devices or hosts, the profiler trace, the per-step noise knobs, the
-bfloat16 learner and the Pallas risk backend. Three faults of the JAX
-driver are not carried over: the final attempt's
+devices or hosts and the profiler trace. ``--risk-backend pallas`` runs
+the tracker kernel's Pallas form, ``--learner-dtype bfloat16`` TD3's
+bfloat16 matmuls; the port adds ``--buffer-size``. Config fields the JAX
+driver does not expose (``lidar_backend``, ``strict_quirks``) reach the
+env through :func:`build`'s overrides. Three faults of the JAX driver
+are not carried over: the final attempt's
 collapse verdict is printed, the printed ``env_steps`` count the steps of
 collapse-restarted attempts, and ``--resume`` keeps that count.
 """
@@ -85,8 +88,8 @@ def build_agent(args, obs_dim: int, device):
     """``(agent, discrete)`` of the command line (``_build_agent`` of the
     JAX driver): TD3 takes the learning rates, the sigma anneal and the
     exploration flags; DDPG the actor's rate and the exploration flags;
-    SAC and DQN the batch size only. ``--buffer-size`` (the port's option)
-    applies to all."""
+    SAC and DQN the batch size only; ``--learner-dtype`` is TD3's.
+    ``--buffer-size`` (the port's option) applies to all."""
     kw = {}
     if args.batch_size:
         kw.update(batch_size=args.batch_size)
@@ -102,6 +105,8 @@ def build_agent(args, obs_dim: int, device):
             if args.explore_spectrum:
                 kw.update(explore_eps_spectrum=True)
     if args.algo == "td3":
+        if args.learner_dtype:
+            kw.update(compute_dtype=args.learner_dtype)
         if args.critic_lr:
             kw.update(critic_lr=args.critic_lr)
         if args.sigma_min is not None:
@@ -153,23 +158,25 @@ def _refuse_unported(args):
         bad.append("--multihost")
     if args.profile_dir:
         bad.append("--profile-dir")
-    for flag in ("actuation_noise", "dt_jitter", "lidar_noise"):
-        if getattr(args, flag):
-            bad.append(f"--{flag.replace('_', '-')}")
-    if args.learner_dtype == "bfloat16":
-        bad.append("--learner-dtype bfloat16")
-    if args.risk_backend == "pallas":
-        bad.append("--risk-backend pallas (the port's tracker kernel "
-                   "follows the XLA chain)")
     if bad:
         raise SystemExit("not ported yet: " + ", ".join(bad))
+    if args.learner_dtype == "bfloat16" and args.algo != "td3":
+        raise SystemExit(f"--learner-dtype bfloat16 is not ported for "
+                         f"{args.algo} (the JAX driver applies it to TD3 "
+                         f"only)")
 
 
-def build(args) -> Trainer:
+def build(args, **overrides) -> Trainer:
+    """The trainer of the command line; ``overrides``: further env config
+    fields."""
     device = resolve(args.device)
+    knobs = {k: v for k, v in (
+        ("actuation_noise", args.actuation_noise),
+        ("dt_jitter", args.dt_jitter), ("lidar_noise", args.lidar_noise),
+        ("risk_backend", args.risk_backend)) if v}
     cfg = make_config(args.world, args.behavior, ablation=args.ablation,
                       jitter=args.jitter, robot=args.robot,
-                      max_steps=args.max_steps)
+                      max_steps=args.max_steps, **knobs, **overrides)
     env_cls = CrowdEnv if args.algo in RISK_ENV_ALGOS else SimpleEnv
     env = env_cls(cfg, device=device, seed=args.seed)
     agent, discrete = build_agent(args, env.obs_dim, device)
@@ -213,7 +220,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--jitter", type=float, default=0.0)
     p.add_argument("--actuation-noise", type=float, default=0.0)
     p.add_argument("--dt-jitter", type=float, default=0.0)
-    p.add_argument("--risk-backend", default=None, choices=["xla", "pallas"])
+    p.add_argument("--risk-backend", default=None, choices=["xla", "pallas"],
+                   help="tracker -> CP -> top-K form (default: the "
+                        "config's 'xla')")
     p.add_argument("--lidar-noise", type=float, default=0.0)
     p.add_argument("--reset-bank", type=int, default=0)
     p.add_argument("--sigma-min", type=float, default=None)

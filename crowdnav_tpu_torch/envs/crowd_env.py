@@ -2,10 +2,20 @@
 ``crowdnav_tpu/envs/crowd_env.py``).
 
 Every function works on a batch of N envs. The step always goes through
-the two kernel wrappers: ``ops.lidar.scan_batch`` (the raycast) and
-``ops.risk_kernel.track_cp_topk_batch`` (tracker -> CP -> top-K), which
-launch their CUDA kernels on CUDA tensors and run the plain PyTorch
-versions on CPU tensors.
+the two kernel wrappers: the raycast of the config's ``lidar_backend``
+(``ops.lidar.scan_batch``, or ``scan_batch_pallas`` for ``"pallas"``) and
+``ops.risk_kernel.track_cp_topk_batch`` (tracker -> CP -> top-K, in the
+form of ``risk_backend`` and ``strict_quirks``), which launch their CUDA
+kernels on CUDA tensors and run the plain PyTorch versions on CPU
+tensors. The JAX package's two risk backends share every step function
+but the chain; its Pallas backend's batched path (``_observe_batch`` then
+the vmapped ``_reward``) is the port's only path.
+
+The per-step noise knobs (``actuation_noise``, ``dt_jitter``,
+``lidar_noise``) draw from the step's generator, or from ``noise`` (keys
+``"act"``, ``"dt"``: ``world.noise_draws``; ``"lidar"``:
+:func:`lidar_noise_draw`), which take the roles of the JAX package's
+``k_act``, ``k_dt`` and ``fold_in(key, 7)`` draws.
 """
 from __future__ import annotations
 
@@ -16,7 +26,6 @@ import torch
 from crowdnav_tpu_torch.envs.config import EnvConfig
 from crowdnav_tpu_torch.envs.world import EnvState, init_state, world_step
 from crowdnav_tpu_torch.ops import geom, lidar, risk
-from crowdnav_tpu_torch.ops.risk_kernel import track_cp_topk_batch
 from crowdnav_tpu_torch.utils import numerics as nm
 from crowdnav_tpu_torch.utils.device import resolve
 
@@ -51,14 +60,34 @@ def _htg_reward(curr, prev):
     return torch.where(hd > 0, pos_case, torch.where(hd < 0, neg_case, 0.0))
 
 
-def _sense(cfg: EnvConfig, state: EnvState):
-    """Raycast (kernel wrapper), 3-decimal rounding, world-frame points."""
+def lidar_noise_draw(cfg: EnvConfig, n: int, gen, device) -> torch.Tensor:
+    """(N, n_scans) Gaussian range noise, the standard normal times
+    ``lidar_noise``."""
+    return torch.randn((n, cfg.n_scans), generator=gen, device=device) \
+        * nm.f32(cfg.lidar_noise)
+
+
+def noisy_scans(cfg: EnvConfig, scans, noise, gen=None):
+    """The lidar plugin's noise on hit beams only, re-clipped to the
+    sensor band: ``noise`` (N, n_scans) from :func:`lidar_noise_draw`, or
+    drawn from ``gen`` when None."""
+    if noise is None:
+        noise = lidar_noise_draw(cfg, scans.shape[0], gen, scans.device)
+    hit = scans < nm.f32(cfg.max_scan_range)
+    noisy = torch.clamp(scans + noise, nm.f32(cfg.lidar_min_range),
+                        nm.f32(cfg.max_scan_range))
+    return torch.where(hit, noisy, scans)
+
+
+def _sense(cfg: EnvConfig, state: EnvState, noise=None, gen=None):
+    """Raycast (the kernel wrapper of the config's lidar backend), the
+    optional hit-beam noise, 3-decimal rounding, world-frame points."""
+    scans = lidar.scan_fn(cfg.lidar_backend)(
+        state.pos, state.yaw, state.ped_pos, cfg.ped_radius,
+        cfg.room_half_inner, cfg.max_scan_range, cfg.lidar_min_range,
+        cfg.n_scans)
     if cfg.lidar_noise > 0.0:
-        raise NotImplementedError("lidar_noise is not ported yet")
-    scans = lidar.scan_batch(state.pos, state.yaw, state.ped_pos,
-                             cfg.ped_radius, cfg.room_half_inner,
-                             cfg.max_scan_range, cfg.lidar_min_range,
-                             cfg.n_scans)
+        scans = noisy_scans(cfg, scans, noise, gen)
     scans = nm.round3(scans)
     return scans, lidar.scan_points(state.pos, state.yaw, scans, cfg.n_scans)
 
@@ -136,25 +165,25 @@ def _finish_observe(cfg: EnvConfig, state: EnvState, scans,
     return new_state, obs, (dtg, htg), done, at_goal
 
 
-def _observe_batch(cfg: EnvConfig, state: EnvState, compute_cp):
+def _observe_batch(cfg: EnvConfig, state: EnvState, compute_cp,
+                   noise=None, gen=None):
     """Sensor and perception half of the step for the batch: raycast
-    kernel, segmentation (plain PyTorch), tracker -> CP -> top-K kernel.
-    ``compute_cp`` is (N,) bool."""
-    scans, points = _sense(cfg, state)
+    kernel, then ``risk.perceive`` (segmentation in plain PyTorch, the
+    tracker -> CP -> top-K kernel, and the social regions of the segments
+    under ``compute_regions``). ``compute_cp`` is (N,) bool."""
+    scans, points = _sense(cfg, state, noise, gen)
     waypoint, dtg, htg = _goal_features(cfg, state)
-    segs = risk.segment_scans(cfg, scans, points)
-    chain = track_cp_topk_batch(cfg, segs, state.tracks, state.pos,
-                                state.prev_pos, compute_cp)
-    out = risk.risk_output(cfg, segs, chain)
+    out = risk.perceive(cfg, scans, points, state.tracks, state.pos,
+                        state.prev_pos, compute_cp,
+                        yaw=state.yaw if cfg.compute_regions else None)
     return _finish_observe(cfg, state, scans, out, waypoint, dtg, htg,
                            compute_cp)
 
 
 def _reward(cfg: EnvConfig, state: EnvState, dtg, htg, done, at_goal):
     """``compute_reward:1046-1162`` with the milestone waypoint bonus (the
-    JAX package's default semantics)."""
-    if cfg.strict_quirks:
-        raise NotImplementedError("strict_quirks is not ported")
+    JAX package's default semantics), or under ``strict_quirks`` the
+    reference's literal box test against the current waypoint."""
     goal = _goal(cfg, state.pos)
     dd = dtg - state.prev_distance
     dtg_r = torch.where(dd < 0, nm.f32(cfg.dtg_reward), 0.0)
@@ -165,9 +194,12 @@ def _reward(cfg: EnvConfig, state: EnvState, dtg, htg, done, at_goal):
                                          cfg.waypoint_radius)
         new_wp = torch.where(_goal_box(new_wp, goal, cfg.goal_eps)[:, None],
                              goal, new_wp)
-        goal_dist = geom.norm(state.pos - goal)
-        at_waypoint = goal_dist <= best - nm.f32(cfg.waypoint_radius)
-        best = torch.where(at_waypoint, goal_dist, best)
+        if cfg.strict_quirks:
+            at_waypoint = _goal_box(state.pos, state.waypoint, cfg.goal_eps)
+        else:
+            goal_dist = geom.norm(state.pos - goal)
+            at_waypoint = goal_dist <= best - nm.f32(cfg.waypoint_radius)
+            best = torch.where(at_waypoint, goal_dist, best)
         wp_r = torch.where(at_waypoint, nm.f32(cfg.waypoint_reward), 0.0)
         waypoint = torch.where(at_waypoint[:, None], new_wp, state.waypoint)
     else:
@@ -195,9 +227,8 @@ class CrowdEnv:
     restores it, as the JAX package's template reset does."""
 
     def __init__(self, cfg: EnvConfig, device="cuda", seed: int = 0):
-        if cfg.strict_quirks:
-            raise ValueError("strict_quirks is not ported: the tracker "
-                             "kernel implements the default quirks only")
+        risk.chain_form(cfg)        # refuses pallas with strict_quirks
+        lidar.scan_fn(cfg.lidar_backend)
         self.cfg = cfg
         self.device = resolve(device)
         self.obs_dim = cfg.state_dim_risk
@@ -206,13 +237,15 @@ class CrowdEnv:
         self.template = self.reset(1, gen)
 
     def reset(self, n: int, gen: torch.Generator | None = None,
-              draws: dict | None = None):
+              draws: dict | None = None, lidar_noise=None):
         """``n`` fresh episodes: (state, obs). The CP block is skipped on
         the reset observation, so the top-K slots hold the robot-pose
-        padding."""
+        padding. ``lidar_noise``: the observation's range noise under
+        ``lidar_noise`` (else drawn from ``gen``)."""
         state = init_state(self.cfg, n, self.device, gen=gen, draws=draws)
         no_cp = torch.zeros((n,), dtype=torch.bool, device=self.device)
-        state, obs, (dtg, htg), _, _ = _observe_batch(self.cfg, state, no_cp)
+        state, obs, (dtg, htg), _, _ = _observe_batch(
+            self.cfg, state, no_cp, lidar_noise, gen)
         false = torch.zeros_like(state.done)
         state = state.replace(prev_distance=dtg, prev_heading=htg,
                               done=false, episode_success=false,
@@ -221,17 +254,22 @@ class CrowdEnv:
 
     def step_batch(self, states: EnvState, actions: torch.Tensor,
                    gen: torch.Generator | None = None,
-                   vel_draw: torch.Tensor | None = None) -> StepOutput:
+                   vel_draw: torch.Tensor | None = None,
+                   noise: dict | None = None) -> StepOutput:
         """One transition of every env: physics, perception, reward, and
         the template auto-reset of envs whose episode ended on the previous
         step. ``vel_draw`` (N, P, 2) feeds the RANDOM crowd's velocity
-        draw, which is otherwise drawn from ``gen``."""
+        draw and ``noise`` the per-step noise knobs' draws (module
+        docstring); what is not given is drawn from ``gen``."""
         cfg = self.cfg
         n = actions.shape[0]
+        noise = noise or {}
         was_done = states.done
-        s = world_step(cfg, states, actions, vel_draw=vel_draw, gen=gen)
+        s = world_step(cfg, states, actions, vel_draw=vel_draw, gen=gen,
+                       noise=noise)
         s, obs, (dtg, htg), done, at_goal = _observe_batch(
-            cfg, s, torch.ones((n,), dtype=torch.bool, device=self.device))
+            cfg, s, torch.ones((n,), dtype=torch.bool, device=self.device),
+            noise.get("lidar"), gen)
         reward, s = _reward(cfg, s, dtg, htg, done, at_goal)
 
         tmpl_state, tmpl_obs = self.template

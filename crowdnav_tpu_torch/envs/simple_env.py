@@ -9,7 +9,13 @@ moved toward the goal, with +200 at the goal and -200 on a collision
 (``min(scans) < 0.105``) or a timeout; there are no waypoints and no
 tracker. An env whose episode ended on the previous step restores the
 deterministic reset template. The raycast goes through the kernel wrapper
-``ops.lidar.scan_batch``, which launches the CUDA raycast on CUDA tensors.
+of the config's ``lidar_backend`` (``ops.lidar.scan_batch``, or
+``scan_batch_pallas``), which launches the CUDA raycast on CUDA tensors.
+(The JAX package's ``SimpleEnv`` always runs the XLA raycast; the port
+runs the Pallas form under ``lidar_backend="pallas"``, as the JAX
+``CrowdEnv`` does.) The per-step noise knobs and ``strict_quirks`` (the
+reference's shaping, which reads the agent's y and x as the distance and
+heading) act as in the JAX package, with draws as in ``CrowdEnv``.
 
 Both action modes of the reference: continuous (lin, ang)
 (:meth:`SimpleEnv.step_batch`) and the discrete FORWARD / LEFT / RIGHT
@@ -21,7 +27,8 @@ import torch
 
 from crowdnav_tpu_torch.envs.config import EnvConfig
 from crowdnav_tpu_torch.envs.crowd_env import (StepOutput, _goal, _goal_box,
-                                               _htg_reward, select_rows)
+                                               _htg_reward, noisy_scans,
+                                               select_rows)
 from crowdnav_tpu_torch.envs.world import EnvState, init_state, world_step
 from crowdnav_tpu_torch.ops import geom, lidar
 from crowdnav_tpu_torch.utils import numerics as nm
@@ -39,8 +46,7 @@ class SimpleEnv:
     auto-reset restores."""
 
     def __init__(self, cfg: EnvConfig, device="cuda", seed: int = 0):
-        if cfg.strict_quirks:
-            raise ValueError("strict_quirks is not ported")
+        lidar.scan_fn(cfg.lidar_backend)
         self.cfg = cfg
         self.device = resolve(device)
         self.obs_dim = cfg.state_dim_simple
@@ -51,14 +57,15 @@ class SimpleEnv:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.template = self.reset(1, gen)
 
-    def _observe(self, state: EnvState):
+    def _observe(self, state: EnvState, noise=None, gen=None):
         cfg = self.cfg
-        if cfg.lidar_noise > 0.0:
-            raise NotImplementedError("lidar_noise is not ported yet")
-        scans = nm.round3(lidar.scan_batch(
+        scans = lidar.scan_fn(cfg.lidar_backend)(
             state.pos, state.yaw, state.ped_pos, cfg.ped_radius,
             cfg.room_half_inner, cfg.max_scan_range, cfg.lidar_min_range,
-            cfg.n_scans))
+            cfg.n_scans)
+        if cfg.lidar_noise > 0.0:
+            scans = noisy_scans(cfg, scans, noise, gen)
+        scans = nm.round3(scans)
         goal = _goal(cfg, state.pos)
         target = goal.expand_as(state.pos)
         dtg = nm.round_dec(geom.vec_norm(target - state.pos), 2)
@@ -72,22 +79,29 @@ class SimpleEnv:
         return obs, dtg, htg, done, at_goal
 
     def reset(self, n: int, gen: torch.Generator | None = None,
-              draws: dict | None = None):
+              draws: dict | None = None, lidar_noise=None):
         """``n`` fresh episodes: (state, obs)."""
         state = init_state(self.cfg, n, self.device, gen=gen, draws=draws)
-        obs, dtg, htg, _, _ = self._observe(state)
+        obs, dtg, htg, _, _ = self._observe(state, lidar_noise, gen)
         return state.replace(prev_distance=dtg, prev_heading=htg), obs
 
     def step_batch(self, states: EnvState, actions: torch.Tensor,
                    gen: torch.Generator | None = None,
-                   vel_draw: torch.Tensor | None = None) -> StepOutput:
+                   vel_draw: torch.Tensor | None = None,
+                   noise: dict | None = None) -> StepOutput:
         """One continuous-mode transition of every env, (N, 2) actions;
-        ``vel_draw`` as in ``CrowdEnv.step_batch``."""
+        ``vel_draw`` and ``noise`` as in ``CrowdEnv.step_batch``."""
         cfg = self.cfg
         n = actions.shape[0]
+        noise = noise or {}
         was_done = states.done
-        s = world_step(cfg, states, actions, vel_draw=vel_draw, gen=gen)
-        obs, dtg, htg, done, at_goal = self._observe(s)
+        s = world_step(cfg, states, actions, vel_draw=vel_draw, gen=gen,
+                       noise=noise)
+        obs, dtg, htg, done, at_goal = self._observe(s, noise.get("lidar"),
+                                                     gen)
+        if cfg.strict_quirks:
+            # the reference's shaping reads the agent's y and x (:325)
+            dtg, htg = obs[:, -1], obs[:, -2]
         dtg_r = torch.where(dtg - s.prev_distance < 0, 1.0, 0.0)
         non_term = dtg_r + _htg_reward(htg, s.prev_heading)
         terminal = torch.where(at_goal, nm.f32(cfg.goal_reward),
@@ -105,8 +119,9 @@ class SimpleEnv:
 
     def step_discrete(self, states: EnvState, action_idx: torch.Tensor,
                       gen: torch.Generator | None = None,
-                      vel_draw: torch.Tensor | None = None) -> StepOutput:
+                      vel_draw: torch.Tensor | None = None,
+                      noise: dict | None = None) -> StepOutput:
         """One transition with (N,) int action indices into
         ``DISCRETE_ACTIONS_TABLE``."""
         return self.step_batch(states, self.actions_table[action_idx.long()],
-                               gen=gen, vel_draw=vel_draw)
+                               gen=gen, vel_draw=vel_draw, noise=noise)

@@ -192,24 +192,32 @@ def init_state(cfg: EnvConfig, n: int, device="cuda",
 def integrate_robot(pos, yaw, lin_vel, ang_vel, dt, wheel_separation,
                     wheel_radius):
     """Differential-drive step of ``turtlebot3_fake.cpp`` (midpoint
-    heading); ``pos`` (N, 2), the rest (N,), ``dt`` a Python float.
+    heading); ``pos`` (N, 2), the rest (N,), ``dt`` a Python float or,
+    under ``dt_jitter``, an (N,) tensor.
 
     Written as the JAX package's jitted step computes it: XLA folds the
     constant factors of ``(v / R) * dt``, ``R * (wr + wl) / 2`` and
     ``R * (wr - wl) / sep`` into one float32 constant each, and fuses the
-    multiply-adds whose product has no other use."""
+    multiply-adds whose product has no other use. With a jittered ``dt``
+    the wheel angles are ``(v * f32(1/R)) * dt``."""
     f = np.float32
     r, sep = f(wheel_radius), f(wheel_separation)
     c_turn = float(sep * f(0.5))
-    c_wheel = float(f(f(1.0) / r) * f(dt))
     c_ds = float(r * f(0.5))
     c_yaw = f(r * (f(1.0) / sep))
     c_mid = float(c_yaw * f(0.5))
     turn = ang_vel * c_turn
     v_l, v_r = lin_vel - turn, lin_vel + turn
-    wheel_l = v_l * c_wheel
-    delta_s = nm.fma(v_r, c_wheel, wheel_l) * c_ds
-    diff = nm.fma(v_r, c_wheel, -wheel_l)
+    if isinstance(dt, torch.Tensor):
+        inv_r = float(f(1.0) / r)
+        wheel_l = (v_l * inv_r) * dt
+        rate_r, step = v_r * inv_r, dt
+    else:
+        c_wheel = float(f(f(1.0) / r) * f(dt))
+        wheel_l = v_l * c_wheel
+        rate_r, step = v_r, c_wheel
+    delta_s = nm.fma(rate_r, step, wheel_l) * c_ds
+    diff = nm.fma(rate_r, step, -wheel_l)
     mid = nm.fma(diff, c_mid, yaw)
     new_pos = torch.stack([nm.fma(delta_s, nm.cos(mid), pos[:, 0]),
                            nm.fma(delta_s, nm.sin(mid), pos[:, 1])], -1)
@@ -222,9 +230,10 @@ def random_velocities(cfg: EnvConfig, shape, gen, device) -> torch.Tensor:
 
 
 def crowd_step(cfg: EnvConfig, step, ped_pos, ped_vel, ped_dirs, ped_phase,
-               vel_draw=None, gen=None):
-    """Advance pedestrians one dt. ``vel_draw`` (N, P, 2) is the RANDOM
-    behavior's fresh uniform velocity, drawn from ``gen`` when None."""
+               vel_draw=None, gen=None, dt=None):
+    """Advance pedestrians one dt (``cfg.dt``, or the (N,) jittered
+    ``dt``). ``vel_draw`` (N, P, 2) is the RANDOM behavior's fresh uniform
+    velocity, drawn from ``gen`` when None."""
     if cfg.n_peds == 0:
         return ped_pos, ped_vel
     redraw = torch.remainder(step + ped_phase, cfg.redraw_window_steps) == 0
@@ -238,7 +247,8 @@ def crowd_step(cfg: EnvConfig, step, ped_pos, ped_vel, ped_dirs, ped_phase,
     else:
         new_vel = ped_dirs * nm.f32(cfg.crowd_speed)
     vel = torch.where(redraw[:, None, None], new_vel, ped_vel)
-    pos = nm.fma(vel, nm.f32(cfg.dt), ped_pos)
+    step_dt = nm.f32(cfg.dt) if dt is None else dt[:, None, None]
+    pos = nm.fma(vel, step_dt, ped_pos)
     lim = nm.f32(cfg.room_half_inner - cfg.ped_radius)
     return torch.clamp(pos, -lim, lim), vel
 
@@ -253,23 +263,50 @@ def classify_action(lin_vel, ang_vel, mode_discrete: bool = False):
     return torch.where(stop, 3, code).to(torch.int32)
 
 
+def noise_draws(cfg: EnvConfig, n: int, gen, device) -> dict:
+    """The per-step noise :func:`world_step` takes, drawn from ``gen``:
+    ``"act"`` (N, 2), the standard normal times ``actuation_noise``, and
+    ``"dt"`` (N,), uniform in [-dt_jitter, dt_jitter). The JAX package
+    draws them from the step's ``k_act`` and ``k_dt`` keys."""
+    d = {}
+    if cfg.actuation_noise > 0.0:
+        d["act"] = torch.randn((n, 2), generator=gen, device=device) \
+            * nm.f32(cfg.actuation_noise)
+    if cfg.dt_jitter > 0.0:
+        d["dt"] = _uniform(gen, (n,), -cfg.dt_jitter, cfg.dt_jitter, device)
+    return d
+
+
 def world_step(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
-               vel_draw=None, gen=None) -> EnvState:
+               vel_draw=None, gen=None, noise: dict | None = None
+               ) -> EnvState:
     """Physics half of the step: apply ``action`` (N, 2) = (lin, ang),
-    integrate the robot and the crowd."""
-    if cfg.actuation_noise > 0.0 or cfg.dt_jitter > 0.0:
-        raise NotImplementedError(
-            "actuation_noise / dt_jitter are not ported yet")
+    integrate the robot and the crowd. With ``actuation_noise`` or
+    ``dt_jitter`` the robot executes a noisy command over a jittered dt
+    (the crowd moves over the same dt), from ``noise`` (as
+    :func:`noise_draws` makes it; other keys are ignored) or drawn from
+    ``gen``; the recorded velocities and action type stay the commanded
+    ones."""
     lin_vel, ang_vel = action[:, 0], action[:, 1]
-    pos, yaw = integrate_robot(state.pos, state.yaw, lin_vel, ang_vel,
-                               cfg.dt, cfg.wheel_separation,
-                               cfg.wheel_radius)
+    exec_lin, exec_ang, dt = lin_vel, ang_vel, cfg.dt
+    if (cfg.actuation_noise > 0.0 or cfg.dt_jitter > 0.0) and not (
+            noise and noise.keys() & {"act", "dt"}):
+        noise = noise_draws(cfg, action.shape[0], gen, action.device)
+    if cfg.actuation_noise > 0.0:
+        z = noise["act"]
+        exec_lin = nm.fma(z[:, 0], nm.f32(cfg.max_lin_vel), lin_vel)
+        exec_ang = nm.fma(z[:, 1], nm.f32(cfg.max_ang_vel), ang_vel)
+    if cfg.dt_jitter > 0.0:
+        dt = (1.0 + noise["dt"]) * nm.f32(cfg.dt)
+    pos, yaw = integrate_robot(state.pos, state.yaw, exec_lin, exec_ang, dt,
+                               cfg.wheel_separation, cfg.wheel_radius)
     lim = nm.f32(cfg.room_half_inner - cfg.robot_radius)
     pos = torch.clamp(pos, -lim, lim)
     yaw = wrap_pi(yaw)
-    ped_pos, ped_vel = crowd_step(cfg, state.step, state.ped_pos,
-                                  state.ped_vel, state.ped_dirs,
-                                  state.ped_phase, vel_draw, gen)
+    ped_pos, ped_vel = crowd_step(
+        cfg, state.step, state.ped_pos, state.ped_vel, state.ped_dirs,
+        state.ped_phase, vel_draw, gen,
+        dt if isinstance(dt, torch.Tensor) else None)
     return state.replace(
         pos=pos, yaw=yaw, lin_vel=lin_vel, ang_vel=ang_vel,
         prev_pos=state.pos, ped_pos=ped_pos, ped_vel=ped_vel,

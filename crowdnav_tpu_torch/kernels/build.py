@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -34,14 +35,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 BUILD_TIMEOUT_S = 600
 
-build_seconds = None   # wall time of this process's nvcc call, if it built
+build_seconds = None
+# the kernel's kForm of each form of ops.risk.FORMS
+TRACK_FORMS = {"xla": 0, "strict": 1, "pallas": 2}   # wall time of this process's nvcc call, if it built
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "crowdnav_raycast": [_P] * 7 + [_I] * 7 + [_F] * 4 + [_P],
-    "crowdnav_track_cp_topk": [_P] + [_I] * 6 + [_F] * 8 + [_P],
+    "crowdnav_raycast_pallas": [_P] * 4 + [_I] * 7 + [_F] * 5 + [_P],
+    "crowdnav_track_cp_topk": [_P] + [_I] * 6 + [_F] * 8 + [_I, _P],
     "crowdnav_libm_sincos": [_P] * 2 + [_I] * 4 + [_P],
     "crowdnav_libm_atan2": [_P] * 3 + [_I] * 3 + [_P],
 }
@@ -159,6 +163,27 @@ def raycast(pos, cos_yaw, sin_yaw, cos_beam, sin_beam, peds, half, r2,
     return out
 
 
+def raycast_pallas(pos, yaw, peds, n_beams, half, r2, min_range,
+                   max_range, threads: int | None = None,
+                   beams_per_thread: int | None = None):
+    """Launch the raycast kernel's Pallas form; arguments as
+    ``ops.lidar.raycast_pallas_plain``. Returns (N, n_beams) float32
+    ranges."""
+    f32 = torch.float32
+    n, p = pos.shape[0], peds.shape[1]
+    ptrs = [_cuda_input("pos", pos, f32, (n, 2)),
+            _cuda_input("yaw", yaw, f32, (n,)),
+            _cuda_input("peds", peds, f32, (n, p, 2))]
+    out = torch.empty((n, n_beams), dtype=f32, device=pos.device)
+    geo = launch.raycast_launch(n, n_beams, p, threads, beams_per_thread)
+    code = library().crowdnav_raycast_pallas(
+        *ptrs, out.data_ptr(), n, n_beams, p, geo.grid, geo.threads,
+        geo.beams_per_thread, geo.smem_bytes, half, r2, min_range, max_range,
+        nm.f32(math.pi / 180.0), _stream(pos.device))
+    _check(code, "crowdnav_raycast_pallas")
+    return out
+
+
 def track_cp_topk_buffers(cfg, seg_conf, seg_obs, seg_pos, seg_dist,
                           t_valid, t_pos, t_prev, t_dist, t_speed, t_vel,
                           r_pos, r_prev, compute_cp):
@@ -208,10 +233,13 @@ def track_cp_topk_buffers(cfg, seg_conf, seg_obs, seg_pos, seg_dist,
 
 def track_cp_topk(cfg, seg_conf, seg_obs, seg_pos, seg_dist, t_valid, t_pos,
                   t_prev, t_dist, t_speed, t_vel, r_pos, r_prev, compute_cp,
-                  envs_per_block: int | None = None):
-    """Launch the tracker -> CP -> top-K kernel. Returns the new track
-    fields ``(valid, pos, prev_pos, has_prev, dist, speed, vel)`` and
-    ``(top_cp, top_pose_vel, cp_max, ego_cp)``."""
+                  envs_per_block: int | None = None, form: str = "xla"):
+    """Launch the tracker -> CP -> top-K kernel in ``form`` (one of
+    ``ops.risk.FORMS``). Returns the new track fields ``(valid, pos,
+    prev_pos, has_prev, dist, speed, vel)`` and ``(top_cp, top_pose_vel,
+    cp_max, ego_cp)``."""
+    if form not in TRACK_FORMS:
+        raise ValueError(f"unknown chain form {form!r}")
     ptrs, outs, consts = track_cp_topk_buffers(
         cfg, seg_conf, seg_obs, seg_pos, seg_dist, t_valid, t_pos, t_prev,
         t_dist, t_speed, t_vel, r_pos, r_prev, compute_cp)
@@ -221,7 +249,7 @@ def track_cp_topk(cfg, seg_conf, seg_obs, seg_pos, seg_dist, t_valid, t_pos,
     addrs = (ctypes.c_void_p * 24)(*ptrs, *(o.data_ptr() for o in outs))
     code = library().crowdnav_track_cp_topk(
         addrs, n, S, T, K, geo.grid, geo.envs_per_block, *consts,
-        _stream(seg_conf.device))
+        TRACK_FORMS[form], _stream(seg_conf.device))
     _check(code, "crowdnav_track_cp_topk")
     return outs[:7], outs[7:]
 

@@ -1,12 +1,20 @@
 // Lidar raycast for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel `_raycast_kernel` of
-// crowdnav_tpu/ops/lidar_pallas.py (launched by `scan_batch_pallas`), but
-// follows the arithmetic of the XLA function `crowdnav_tpu/ops/lidar.scan`,
-// which the JAX package's step actually runs: each beam's direction comes
-// from the angle-addition identity against per-beam tables, not from a
-// direct cos(yaw - i deg). The plain version is `raycast_plain` in
-// crowdnav_tpu_torch/ops/lidar.py; the two agree bit for bit.
+// crowdnav_tpu/ops/lidar_pallas.py (launched by `scan_batch_pallas`), in
+// the two forms of the JAX package's lidar backends:
+//   - the XLA form (lidar_backend="xla", the default, which the JAX
+//     package's step runs): the arithmetic of `crowdnav_tpu/ops/lidar.scan`,
+//     each beam's direction from the angle-addition identity against
+//     per-beam tables; plain version `raycast_plain`;
+//   - the Pallas form (lidar_backend="pallas"): the arithmetic of
+//     `_raycast_kernel`, each beam's direction the C library's cos and sin
+//     (libm_f32.cuh) of its angle fma(-i, deg, yaw), as the JAX package's
+//     CPU reference computes it; plain version `raycast_pallas_plain`.
+// Plain versions in crowdnav_tpu_torch/ops/lidar.py; each form agrees
+// with its plain version bit for bit. The walls, the pedestrians and the
+// clip are the same operations in both forms (the Pallas kernel's
+// where(d >= 0, h, -h) equals sign(d) * h wherever |d| >= 1e-12).
 //
 // Per env and beam: the exit distance from inside the room [-h, h]^2, the
 // minimum with the nearest forward hit on the P pedestrian circles, clipped
@@ -17,6 +25,9 @@
 // and fmaf only where the reference's compiler fuses a multiply-add; IEEE
 // division and sqrtf. Constants (half, r^2, the range clip) come in as the
 // float32 values the plain version uses.
+//
+// The Pallas form adds per beam the two double-precision polynomials of
+// the C library's sinf/cosf (a few dozen FP64 operations).
 //
 // Bound: about level between bytes and operations. At 16,384 envs x 359
 // beams x 14 pedestrians the kernel writes 23.5 MB and reads 2.1 MB (7.6 us
@@ -58,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "libm_f32.cuh"
+
 namespace {
 
 constexpr float kEps = 1e-12f;
@@ -77,7 +90,9 @@ __device__ __forceinline__ float wall(float d, float p, float half,
   return t;
 }
 
-template <int R>
+// kPallas: the Pallas form; cos_yaw then holds the yaw, and sin_yaw and
+// the beam tables are not read.
+template <int R, bool kPallas>
 __global__ void __launch_bounds__(512)
     raycast_kernel(const float2* __restrict__ pos,
                    const float* __restrict__ cos_yaw,
@@ -86,7 +101,7 @@ __global__ void __launch_bounds__(512)
                    const float* __restrict__ sin_beam,
                    const float2* __restrict__ peds, float* __restrict__ out,
                    int n_envs, int n_beams, int n_peds, float half, float r2,
-                   float min_range, float max_range) {
+                   float min_range, float max_range, float deg) {
   extern __shared__ float4 sm[];
   // the wrapper keeps n_envs * slots below 2^31
   const unsigned slots = (n_beams + R - 1) / R;  // threads per env
@@ -95,13 +110,15 @@ __global__ void __launch_bounds__(512)
   const unsigned last = min(first + blockDim.x, total) - 1;
   const int env_lo = first / slots;
   const int ne = last / slots - env_lo + 1;
-  float4* env_s = sm;  // (px, py, cos yaw, sin yaw) per env
+  // (px, py, cos yaw, sin yaw) per env; (px, py, yaw, 0) in the Pallas form
+  float4* env_s = sm;
   float2* rel_s = reinterpret_cast<float2*>(sm + ne);  // (relx, rely)
   float* rel2_s = reinterpret_cast<float*>(rel_s + ne * n_peds);
   for (int i = threadIdx.x; i < ne; i += blockDim.x) {
     const int e = env_lo + i;
     const float2 p = pos[e];
-    env_s[i] = make_float4(p.x, p.y, cos_yaw[e], sin_yaw[e]);
+    env_s[i] =
+        make_float4(p.x, p.y, cos_yaw[e], kPallas ? 0.f : sin_yaw[e]);
   }
   for (int i = threadIdx.x; i < ne * n_peds; i += blockDim.x) {
     const int e = env_lo + i / n_peds;
@@ -128,9 +145,15 @@ __global__ void __launch_bounds__(512)
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int beam = min((int)(j + r * slots), n_beams - 1);
-    const float ca = cos_beam[beam], sa = sin_beam[beam];
-    dx[r] = fmaf(cy, ca, sy * sa);
-    dy[r] = fmaf(sy, ca, -(cy * sa));
+    if (kPallas) {
+      const float ang = fmaf(-(float)beam, deg, cy);  // cy holds the yaw
+      dx[r] = libmf_cosf(ang);
+      dy[r] = libmf_sinf(ang);
+    } else {
+      const float ca = cos_beam[beam], sa = sin_beam[beam];
+      dx[r] = fmaf(cy, ca, sy * sa);
+      dy[r] = fmaf(sy, ca, -(cy * sa));
+    }
     t[r] = fminf(wall(dx[r], px, half, range_up),
                  wall(dy[r], py, half, range_up));
   }
@@ -176,16 +199,15 @@ __global__ void __launch_bounds__(512)
 
 }  // namespace
 
-// blocks, threads, beams_per_thread, smem_bytes: raycast_launch
-// (kernels/launch.py). Returns the launch's cudaError_t.
-extern "C" int crowdnav_raycast(const float* pos, const float* cos_yaw,
-                                const float* sin_yaw, const float* cos_beam,
-                                const float* sin_beam, const float* peds,
-                                float* out, int n_envs, int n_beams,
-                                int n_peds, int blocks, int threads,
-                                int beams_per_thread, int smem_bytes,
-                                float half, float r2, float min_range,
-                                float max_range, void* stream) {
+namespace {
+
+int launch_raycast(bool pallas, const float* pos, const float* cos_yaw,
+                   const float* sin_yaw, const float* cos_beam,
+                   const float* sin_beam, const float* peds, float* out,
+                   int n_envs, int n_beams, int n_peds, int blocks,
+                   int threads, int beams_per_thread, int smem_bytes,
+                   float half, float r2, float min_range, float max_range,
+                   float deg, void* stream) {
   if (n_envs == 0 || n_beams == 0) return 0;
   if (beams_per_thread != 2 && beams_per_thread != 4 &&
       beams_per_thread != 8) {
@@ -200,15 +222,57 @@ extern "C" int crowdnav_raycast(const float* pos, const float* cos_yaw,
   const float2* pos2 = reinterpret_cast<const float2*>(pos);
   const float2* peds2 = reinterpret_cast<const float2*>(peds);
   cudaStream_t st = (cudaStream_t)stream;
-#define CROWDNAV_RAYCAST(R)                                                  \
-  raycast_kernel<R><<<blocks, threads, smem_bytes, st>>>(                    \
+#define CROWDNAV_RAYCAST(R, P)                                               \
+  raycast_kernel<R, P><<<blocks, threads, smem_bytes, st>>>(                 \
       pos2, cos_yaw, sin_yaw, cos_beam, sin_beam, peds2, out, n_envs,        \
-      n_beams, n_peds, half, r2, min_range, max_range)
-  switch (beams_per_thread) {
-    case 2: CROWDNAV_RAYCAST(2); break;
-    case 4: CROWDNAV_RAYCAST(4); break;
-    default: CROWDNAV_RAYCAST(8); break;
+      n_beams, n_peds, half, r2, min_range, max_range, deg)
+  if (pallas) {
+    switch (beams_per_thread) {
+      case 2: CROWDNAV_RAYCAST(2, true); break;
+      case 4: CROWDNAV_RAYCAST(4, true); break;
+      default: CROWDNAV_RAYCAST(8, true); break;
+    }
+  } else {
+    switch (beams_per_thread) {
+      case 2: CROWDNAV_RAYCAST(2, false); break;
+      case 4: CROWDNAV_RAYCAST(4, false); break;
+      default: CROWDNAV_RAYCAST(8, false); break;
+    }
   }
 #undef CROWDNAV_RAYCAST
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The XLA form. blocks, threads, beams_per_thread, smem_bytes:
+// raycast_launch (kernels/launch.py). Returns the launch's cudaError_t.
+extern "C" int crowdnav_raycast(const float* pos, const float* cos_yaw,
+                                const float* sin_yaw, const float* cos_beam,
+                                const float* sin_beam, const float* peds,
+                                float* out, int n_envs, int n_beams,
+                                int n_peds, int blocks, int threads,
+                                int beams_per_thread, int smem_bytes,
+                                float half, float r2, float min_range,
+                                float max_range, void* stream) {
+  return launch_raycast(false, pos, cos_yaw, sin_yaw, cos_beam, sin_beam,
+                        peds, out, n_envs, n_beams, n_peds, blocks, threads,
+                        beams_per_thread, smem_bytes, half, r2, min_range,
+                        max_range, 0.f, stream);
+}
+
+// The Pallas form: yaw (N) in place of the trig of the yaw and the beam
+// tables; deg = f32(pi / 180).
+extern "C" int crowdnav_raycast_pallas(const float* pos, const float* yaw,
+                                       const float* peds, float* out,
+                                       int n_envs, int n_beams, int n_peds,
+                                       int blocks, int threads,
+                                       int beams_per_thread, int smem_bytes,
+                                       float half, float r2, float min_range,
+                                       float max_range, float deg,
+                                       void* stream) {
+  return launch_raycast(true, pos, yaw, nullptr, nullptr, nullptr, peds,
+                        out, n_envs, n_beams, n_peds, blocks, threads,
+                        beams_per_thread, smem_bytes, half, r2, min_range,
+                        max_range, deg, stream);
 }

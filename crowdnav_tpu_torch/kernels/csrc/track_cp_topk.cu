@@ -1,9 +1,21 @@
 // Tracker -> collision probability -> top-K chain for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel `_kernel` of crowdnav_tpu/ops/risk_pallas.py
-// (launched by `track_cp_topk_batch`), with the arithmetic of the XLA chain
-// risk.update_tracks -> collision_probabilities -> select_top_k under the
-// default quirks policy. The plain version is `track_cp_topk` in
+// (launched by `track_cp_topk_batch`), in three forms (kForm):
+//   - kXla: the arithmetic of the XLA chain risk.update_tracks ->
+//     collision_probabilities -> select_top_k under the default quirks
+//     policy, which the JAX package's default risk backend runs;
+//   - kStrict: the same chain under strict_quirks: every track's closing
+//     speed is the first valid track's, and the top-K is the reference's
+//     sorted(desc)[-K:] (the K lowest-CP tracks when more than K are
+//     valid), reported in descending CP order;
+//   - kPallas: the arithmetic of `_kernel` itself (risk_backend="pallas")
+//     as the JAX package's CPU reference computes it, which sums the
+//     squares of the track's motion, of the resultant line and of the
+//     centre offset in the other order, multiplies the line by
+//     1 / max(norm, 1e-9) instead of dividing, and fuses the robot's speed
+//     into the resultant speed.
+// The plain version of each form is `track_cp_topk(..., form)` in
 // crowdnav_tpu_torch/ops/risk.py; the wrapper is
 // crowdnav_tpu_torch/ops/risk_kernel.py.
 //
@@ -60,6 +72,7 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kXla = 0, kStrict = 1, kPallas = 2;  // ops.risk.FORMS
 constexpr int kIn = 13;
 constexpr int kOut = 11;
 constexpr int kMaxWarps = 16;  // blocks of at most 512 threads
@@ -96,8 +109,8 @@ __device__ __forceinline__ void store(uint8_t* base, size_t i, V v) {
 }
 
 // kS, kT, kK: the sizes fixed at compile time, or 0 to take them at run
-// time.
-template <int kS, int kT, int kK>
+// time; kForm: kXla, kStrict or kPallas.
+template <int kS, int kT, int kK, int kForm>
 __global__ void __launch_bounds__(32 * kMaxWarps)
     track_cp_topk_kernel(Ptrs g, int n_envs, int S_rt, int T_rt, int K_rt,
                          Consts c) {
@@ -108,6 +121,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   __shared__ float dist_s[kMaxWarps][32];
   __shared__ float score_s[kMaxWarps][32];
   __shared__ int seg_of_rank_s[kMaxWarps][32];
+  // strict top-K: each track's rank and reorder key
+  __shared__ int rank_s[kForm == kStrict ? kMaxWarps : 1][32];
+  __shared__ float key_s[kForm == kStrict ? kMaxWarps : 1][32];
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int env = blockIdx.x * (blockDim.x >> 5) + w;
@@ -178,7 +194,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   const bool matched = valid && my_best_iou > 0.f;
   const float2 nb = s_pos[my_best];
   const float delx = px - nb.x, dely = py - nb.y;  // prev - curr
-  const float speed = sqrtf(fmaf(dely, dely, delx * delx)) * c.inv_dt;
+  const float speed =
+      sqrtf(kForm == kPallas ? fmaf(delx, delx, dely * dely)
+                             : fmaf(dely, dely, delx * delx)) *
+      c.inv_dt;
   float f_px = px, f_py = py, f_prx = t_prev.x, f_pry = t_prev.y;
   float f_dist = t_dist, f_speed = t_speed, f_vx = t_vel.x, f_vy = t_vel.y;
   if (matched) {
@@ -222,20 +241,41 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   // ---- phase 3: collision probability of track `lane` ----
   const float rx = rp.x, ry = rp.y, prx = rq.x, pry = rq.y;
   const float mdx = rx - prx, mdy = ry - pry;
-  const float agent_speed = sqrtf(fmaf(mdy, mdy, mdx * mdx)) * c.inv_dt;
   const float hp = f_has_prev ? 1.f : 0.f;
   const float relx = (rx + (f_prx - f_px) * hp) - prx;
   const float rely = (ry + (f_pry - f_py) * hp) - pry;
-  const float nrm = fmaxf(sqrtf(fmaf(rely, rely, relx * relx)), 1e-9f);
-  const float ux = relx / nrm, uy = rely / nrm;
   const float ocx = f_px - prx, ocy = f_py - pry;
-  const float bb = fmaf(ocy, uy, ocx * ux);
-  const float d2 = fmaf(-bb, bb, fmaf(ocy, ocy, ocx * ocx));
+  float bb, d2, resultant;
+  if (kForm == kPallas) {
+    const float inv =
+        1.f / fmaxf(sqrtf(fmaf(relx, relx, rely * rely)), 1e-9f);
+    const float ux = relx * inv, uy = rely * inv;
+    bb = fmaf(ocx, ux, ocy * uy);
+    d2 = fmaf(-bb, bb, fmaf(ocx, ocx, ocy * ocy));
+    resultant = fmaf(sqrtf(fmaf(mdx, mdx, mdy * mdy)), c.inv_dt, -f_speed);
+  } else {
+    const float agent_raw = sqrtf(fmaf(mdy, mdy, mdx * mdx));
+    const float nrm = fmaxf(sqrtf(fmaf(rely, rely, relx * relx)), 1e-9f);
+    const float ux = relx / nrm, uy = rely / nrm;
+    bb = fmaf(ocy, uy, ocx * ux);
+    d2 = fmaf(-bb, bb, fmaf(ocy, ocy, ocx * ocx));
+    if (kForm == kStrict) {
+      // the first valid track's closing speed (0 with no valid track),
+      // one per env, fused with the robot's speed as the reference's
+      // compiler does
+      const unsigned vmask = __ballot_sync(kFull, f_valid);
+      float obs_speed =
+          __shfl_sync(kFull, f_speed, vmask ? __ffs(vmask) - 1 : 0);
+      if (vmask == 0u) obs_speed = 0.f;
+      resultant = fmaf(agent_raw, c.inv_dt, -obs_speed);
+    } else {
+      resultant = agent_raw * c.inv_dt - f_speed;
+    }
+  }
   const float disc = c.bw2 - d2;
   const bool hit = disc >= 0.f;
   const float sq = sqrtf(fmaxf(disc, 0.f));
   const float dist_cp = hit ? fminf(fabsf(bb - sq), fabsf(bb + sq)) : inf;
-  const float resultant = agent_speed - f_speed;
   const bool still = resultant == 0.f;
   const float ttc = dist_cp / (still ? 1.f : resultant);
   const float ttc_nz = ttc == 0.f ? inf : ttc;
@@ -258,9 +298,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   }
 
   // ---- phase 4: stable top-K ----
-  const bool any_track = __ballot_sync(kFull, f_valid) != 0u;
-  const bool live = compute_cp && any_track;
-  const float score = f_valid ? cp : -inf;
+  const unsigned valid_mask = __ballot_sync(kFull, f_valid);
+  const bool live = compute_cp && valid_mask != 0u;
+  float score = f_valid ? cp : -inf;
+  if (kForm == kStrict && __popc(valid_mask) > K && f_valid) score = -cp;
   float* s_score = score_s[w];
   s_score[lane] = score;
   __syncwarp();
@@ -271,10 +312,25 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
                                       : 0xffffffe0u | (unsigned)lane;
   int rank = __popc(__match_any_sync(kFull, key) & below);
   for (int u = 0; u < T; ++u) rank += s_score[u] > score ? 1 : 0;
+  // the output slot of a picked track: its rank, or in the strict form
+  // its place among the K picked in descending CP (ties by rank)
+  int slot = rank;
+  if (kForm == kStrict) {
+    const float k_cp = f_valid ? cp : -inf;
+    rank_s[w][lane] = has_trk ? rank : K;
+    key_s[w][lane] = k_cp;
+    __syncwarp();
+    slot = 0;
+    for (int u = 0; u < T; ++u) {
+      const int ru = rank_s[w][u];
+      const float ku = key_s[w][u];
+      slot += (ru < K && (ku > k_cp || (ku == k_cp && ru < rank))) ? 1 : 0;
+    }
+  }
   const bool picked = live && f_valid;
   const float my_top = picked ? cp : 0.f;
   if (has_trk && rank < K) {
-    const size_t kb = (size_t)env * K + rank;
+    const size_t kb = (size_t)env * K + slot;
     store(g.out[7], kb, my_top);
     store(g.out[8], kb,
           make_float4(picked ? f_px : rx, picked ? f_py : ry,
@@ -301,11 +357,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 extern "C" int crowdnav_track_cp_topk(
     void* const* ptrs, int n_envs, int S, int T, int K, int blocks,
     int envs_per_block, float side, float two_side2, float inv_dt, float bw2,
-    float w_ttc, float w_dist, float max_range, float inv_range,
+    float w_ttc, float w_dist, float max_range, float inv_range, int form,
     void* stream) {
   if (n_envs == 0) return 0;
   if (envs_per_block < 1 || envs_per_block > kMaxWarps || S < 1 || S > 32 ||
-      T < 1 || T > 32 || K < 1 || K > T) {
+      T < 1 || T > 32 || K < 1 || K > T || form < kXla || form > kPallas) {
     return (int)cudaErrorInvalidValue;
   }
   Ptrs g;
@@ -315,10 +371,17 @@ extern "C" int crowdnav_track_cp_topk(
   }
   const Consts c{side, two_side2, inv_dt, bw2, w_ttc, w_dist, max_range,
                  inv_range};
-  void (*kernel)(Ptrs, int, int, int, int, Consts) =
-      S == 32 && T == 24 && K == 8   ? track_cp_topk_kernel<32, 24, 8>
-      : S == 32 && T == 24 && K == 1 ? track_cp_topk_kernel<32, 24, 1>
-                                     : track_cp_topk_kernel<0, 0, 0>;
+  using Kernel = void (*)(Ptrs, int, int, int, int, Consts);
+#define CROWDNAV_TRACK_FORMS(S_, T_, K_)                                     \
+  (form == kXla      ? track_cp_topk_kernel<S_, T_, K_, kXla>                \
+   : form == kStrict ? track_cp_topk_kernel<S_, T_, K_, kStrict>             \
+                     : track_cp_topk_kernel<S_, T_, K_, kPallas>)
+  const Kernel kernel = S == 32 && T == 24 && K == 8
+                            ? CROWDNAV_TRACK_FORMS(32, 24, 8)
+                        : S == 32 && T == 24 && K == 1
+                            ? CROWDNAV_TRACK_FORMS(32, 24, 1)
+                            : CROWDNAV_TRACK_FORMS(0, 0, 0);
+#undef CROWDNAV_TRACK_FORMS
   kernel<<<blocks, 32 * envs_per_block, 0, (cudaStream_t)stream>>>(
       g, n_envs, S, T, K, c);
   return (int)cudaGetLastError();

@@ -54,12 +54,30 @@ def raycast_work(n: int, b: int, p: int, hits: int):
     return nbytes, ops
 
 
-def raycast_hits(pos, cy, sy, ca, sa, peds, r2) -> int:
-    """The (beam, pedestrian) pairs of these inputs whose discriminant is
-    >= 0, computed as the kernel computes it (``ops.lidar.circle_hit``);
-    arguments as ``ops.lidar.raycast_plain``."""
-    dx = nm.fma(cy[:, None], ca, sy[:, None] * sa)
-    dy = nm.fma(sy[:, None], ca, -(cy[:, None] * sa))
+def raycast_pallas_work(n: int, b: int, p: int, hits: int):
+    """The raycast's Pallas form: ``(bytes, float32 ops, float64 ops)``.
+    It reads the yaw in place of its trig and the beam tables, and per
+    beam computes the angle (a multiply-add) and the C library's cos and
+    sin of it (float64) in place of the angle addition."""
+    nbytes = 4 * (2 * n + n + 2 * n * p + n * b)
+    ops = (n * b * (RAYCAST_OPS_PER_BEAM - 6 + 2 + RAYCAST_OPS_PER_PAIR * p)
+           + RAYCAST_OPS_PER_HIT * hits + RAYCAST_OPS_PER_ENV_PED * n * p)
+    return nbytes, ops, n * b * 2 * LIBM_SINCOS_F64_OPS
+
+
+def mixed_bound_ms(nbytes: float, ops32: float, ops64: float):
+    """:func:`bound_ms` of work with float32 and float64 operations,
+    which run on separate pipes: the largest of the three times."""
+    t = {"bytes": nbytes / H100_BYTES_PER_S,
+         "operations": max(ops32 / H100_F32_FLOPS, ops64 / H100_F64_FLOPS)}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def raycast_dir_hits(pos, dx, dy, peds, r2) -> int:
+    """The (beam, pedestrian) pairs whose discriminant is >= 0 for the
+    beam directions ``dx``, ``dy`` (N, B), computed as the kernel computes
+    it (``ops.lidar.circle_hit``)."""
     hits = 0
     for k in range(peds.shape[1]):
         relx = peds[:, k, 0:1] - pos[:, 0:1]
@@ -68,6 +86,22 @@ def raycast_hits(pos, cy, sy, ca, sa, peds, r2) -> int:
         disc = r2 - nm.fma(-bb, bb, nm.fma(relx, relx, rely * rely))
         hits += int(torch.count_nonzero(disc >= 0.0))
     return hits
+
+
+def raycast_hits(pos, cy, sy, ca, sa, peds, r2) -> int:
+    """:func:`raycast_dir_hits` of the XLA form; arguments as
+    ``ops.lidar.raycast_plain``."""
+    dx = nm.fma(cy[:, None], ca, sy[:, None] * sa)
+    dy = nm.fma(sy[:, None], ca, -(cy[:, None] * sa))
+    return raycast_dir_hits(pos, dx, dy, peds, r2)
+
+
+def raycast_pallas_hits(pos, yaw, peds, n_beams, r2) -> int:
+    """:func:`raycast_dir_hits` of the Pallas form; arguments as
+    ``ops.lidar.raycast_pallas_plain``."""
+    from crowdnav_tpu_torch.ops.lidar import beam_angles
+    ang = beam_angles(yaw, n_beams)
+    return raycast_dir_hits(pos, nm.cos(ang), nm.sin(ang), peds, r2)
 
 
 def track_cp_topk_fields(S: int, T: int, K: int):
@@ -86,14 +120,15 @@ def track_cp_topk_fields(S: int, T: int, K: int):
     return inputs, outputs
 
 
-def track_cp_topk_work(n: int, S: int, T: int, K: int):
+def track_cp_topk_work(n: int, S: int, T: int, K: int, form: str = "xla"):
     """Tracker -> CP -> top-K of ``n`` envs with ``S`` segments, ``T``
     tracks and top ``K``: per env the T x S box IOUs (12 operations each),
     the track update and CP (60 per track) and the top-K rank (3 per pair
-    of tracks)."""
+    of tracks; the strict form's reorder 3 more). The forms move the same
+    bytes."""
     inputs, outputs = track_cp_topk_fields(S, T, K)
     nbytes = n * sum(row for _, row in inputs + outputs)
-    ops = n * (T * S * 12 + T * 60 + T * T * 3)
+    ops = n * (T * S * 12 + T * 60 + T * T * (6 if form == "strict" else 3))
     return nbytes, ops
 
 

@@ -10,6 +10,12 @@ the action box: sigmoid -> [0, v_max] linear velocity and tanh ->
 observation stored in bfloat16 is promoted to float32 before the first
 product, as flax's ``Dense(dtype=float32)`` does.
 
+TD3's ``compute_dtype="bfloat16"`` (flax's ``Dense(dtype=bfloat16)``):
+every dense layer casts its input, kernel and bias to bfloat16 and puts
+out bfloat16 (the products summed in float32 on both frameworks' CPU and
+on the card), and the network's output is cast back to float32; the
+parameters stay float32.
+
 The learner keeps each network's parameters in one flat float32 vector
 (:func:`flatten`, :func:`unflatten`), so that its optimizer and its soft
 target updates are a few whole-vector operations; the modules and the
@@ -57,41 +63,49 @@ def scaled_uniform_(t: torch.Tensor, scale: float,
 
 
 def mlp_apply(p: dict, x: torch.Tensor, n_layers: int = 3,
-              prefix: str = "") -> torch.Tensor:
-    """A ReLU MLP of ``n_layers`` dense layers, linear output."""
+              prefix: str = "", dtype: torch.dtype = torch.float32
+              ) -> torch.Tensor:
+    """A ReLU MLP of ``n_layers`` dense layers, linear output, computed in
+    ``dtype`` (input, kernels and biases cast to it); the output is
+    float32."""
+    x = x.to(dtype)
     for i in range(n_layers):
-        x = F.linear(x, p[f"{prefix}dense{i}.weight"],
-                     p[f"{prefix}dense{i}.bias"])
+        x = F.linear(x, p[f"{prefix}dense{i}.weight"].to(dtype),
+                     p[f"{prefix}dense{i}.bias"].to(dtype))
         if i < n_layers - 1:
             x = torch.relu(x)
-    return x
+    return x.float()
 
 
-def _mlp(p: dict, prefix: str, x: torch.Tensor) -> torch.Tensor:
-    return mlp_apply(p, x, 3, prefix)
+def _mlp(p: dict, prefix: str, x: torch.Tensor,
+         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return mlp_apply(p, x, 3, prefix, dtype)
 
 
-def actor_heads(p: dict, obs: torch.Tensor):
+def actor_heads(p: dict, obs: torch.Tensor,
+                dtype: torch.dtype = torch.float32):
     """The actor's squashed outputs before their scales: ``(sigmoid(raw0),
     tanh(raw1))``, each (B, 1), from a ``{name: tensor}`` of its
-    parameters."""
-    raw = _mlp(p, "", obs.float())
+    parameters, the MLP computed in ``dtype``."""
+    raw = _mlp(p, "", obs.float(), dtype)
     return torch.sigmoid(raw[..., :1]), torch.tanh(raw[..., 1:2])
 
 
 def actor_apply(p: dict, obs: torch.Tensor, max_lin_vel: float,
-                max_ang_vel: float) -> torch.Tensor:
+                max_ang_vel: float, dtype: torch.dtype = torch.float32
+                ) -> torch.Tensor:
     """The actor from a ``{name: tensor}`` of its parameters."""
-    sig, th = actor_heads(p, obs)
+    sig, th = actor_heads(p, obs, dtype)
     return torch.cat([sig * max_lin_vel, th * max_ang_vel], dim=-1)
 
 
 def critic_apply(p: dict, obs: torch.Tensor, action: torch.Tensor,
-                 heads=("q1", "q2")):
+                 heads=("q1", "q2"), dtype: torch.dtype = torch.float32):
     """The critics named in ``heads`` from a ``{name: tensor}`` of the twin
-    critic's parameters: a tuple of (B, 1) values."""
+    critic's parameters: a tuple of (B, 1) float32 values, the MLPs
+    computed in ``dtype``."""
     x = torch.cat([obs.float(), action.float()], dim=-1)
-    return tuple(_mlp(p, f"{h}.", x) for h in heads)
+    return tuple(_mlp(p, f"{h}.", x, dtype) for h in heads)
 
 
 class _MLP(nn.Module):
@@ -110,16 +124,19 @@ class _MLP(nn.Module):
 
 class DeterministicActor(_MLP):
     def __init__(self, obs_dim: int, action_dim: int = 2, hidden: int = 256,
-                 max_lin_vel: float = 0.22, max_ang_vel: float = 2.0):
+                 max_lin_vel: float = 0.22, max_ang_vel: float = 2.0,
+                 dtype: torch.dtype = torch.float32):
         if action_dim != 2:
             raise ValueError("the actor's heads are (linear, angular)")
         super().__init__(obs_dim, hidden, action_dim)
         self.max_lin_vel = max_lin_vel
         self.max_ang_vel = max_ang_vel
+        self.compute_dtype = dtype
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         return actor_apply(dict(self.named_parameters()), obs,
-                           self.max_lin_vel, self.max_ang_vel)
+                           self.max_lin_vel, self.max_ang_vel,
+                           self.compute_dtype)
 
 
 class QCritic(_MLP):

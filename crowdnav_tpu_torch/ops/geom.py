@@ -91,13 +91,71 @@ def box_iou(a_xy, b_xy, half_size):
     return nm.round3(inter / union)
 
 
-def boxes_associated(a_xy, b_xy, half_size):
-    """Box-association predicate, the JAX package's default form: the two
-    squares of half-side ``half_size`` overlap."""
+def rounded_overlap(dx, dy, side):
+    """``round(IOU, 3) > 0`` of two squares of side ``side`` whose centres
+    are ``(dx, dy)`` apart, in the division-free form
+    ``inter * 1.0005 > 1e-3 * side^2`` (the reference's literal
+    association, ``strict_quirks``)."""
+    s = nm.f32(side)
+    inter = (torch.clamp_min(s - torch.abs(dx), 0.0)
+             * torch.clamp_min(s - torch.abs(dy), 0.0))
+    return inter * nm.f32(1.0005) > nm.f32(1e-3 * side * side)
+
+
+def boxes_associated(a_xy, b_xy, half_size, rounded: bool = False):
+    """Box-association predicate: the two squares of half-side
+    ``half_size`` overlap (the JAX package's default form), or with
+    ``rounded`` their 3-decimal IOU is positive (:func:`rounded_overlap`)."""
+    dx = a_xy[..., 0] - b_xy[..., 0]
+    dy = a_xy[..., 1] - b_xy[..., 1]
+    if rounded:
+        return rounded_overlap(dx, dy, 2.0 * half_size)
     side = nm.f32(2.0 * half_size)
-    dx = torch.abs(a_xy[..., 0] - b_xy[..., 0])
-    dy = torch.abs(a_xy[..., 1] - b_xy[..., 1])
-    return (dx < side) & (dy < side)
+    return (torch.abs(dx) < side) & (torch.abs(dy) < side)
+
+
+def _in_parallelogram(px, py, quad):
+    """Strict point-in-convex-quad: every edge cross product has one sign
+    (the boundary excluded, shapely's ``Polygon.contains``)."""
+    def cross(a, b):
+        (x1, y1), (x2, y2) = a, b
+        return nm.fma(x2 - x1, py - y1, -((y2 - y1) * (px - x1)))
+
+    cs = [cross(quad[i], quad[(i + 1) % 4]) for i in range(4)]
+    pos = (cs[0] > 0) & (cs[1] > 0) & (cs[2] > 0) & (cs[3] > 0)
+    neg = (cs[0] < 0) & (cs[1] < 0) & (cs[2] < 0) & (cs[3] < 0)
+    return pos | neg
+
+
+def social_region(robot_xy, yaw, pts_xy, scans):
+    """Social-region code of each point (``geom.social_region`` of the JAX
+    package, the rectangle geometry of ``utils.get_obstacle_region``):
+    0 other, 1 front-right far, 2 front-left far, 3 front-right close,
+    4 front-left close. ``robot_xy`` (..., 2) and ``yaw`` (...) broadcast
+    against ``pts_xy`` (..., 2) and ``scans`` (...)."""
+    heading = torch.abs(yaw * nm.f32(180.0 / math.pi) - 180.0)
+    hr = heading * nm.f32(math.pi / 180.0)
+    rx, ry = robot_xy[..., 0], robot_xy[..., 1]
+    fx = nm.fma(nm.f32(-0.6), nm.cos(hr), rx)
+    fy = nm.fma(nm.f32(0.6), nm.sin(hr), ry)
+    q = hr + nm.f32(math.pi / 2.0)
+    ox = nm.f32(-0.16) * nm.cos(q)
+    oy = nm.f32(0.16) * nm.sin(q)
+    px, py = pts_xy[..., 0], pts_xy[..., 1]
+    in_fr = _in_parallelogram(px, py, ((rx + ox, ry + oy),
+                                       (fx + ox, fy + oy), (fx, fy),
+                                       (rx, ry)))
+    in_fl = _in_parallelogram(px, py, ((rx, ry), (fx, fy),
+                                       (fx - ox, fy - oy),
+                                       (rx - ox, ry - oy)))
+    far = (scans > nm.f32(0.3)) & (scans < nm.f32(0.6))
+    close = scans < nm.f32(0.3)
+    code = torch.zeros(px.shape, dtype=torch.int32, device=px.device)
+    code = torch.where(far & in_fr, 1, code)
+    code = torch.where(far & in_fl, 2, code)
+    code = torch.where(close & in_fr, 3, code)
+    code = torch.where(close & in_fl, 4, code)
+    return code.to(torch.int32)
 
 
 def estimate_num_obs_scans(dist, max_range, min_range):

@@ -5,7 +5,15 @@ top-K selection, on tensors with a leading env axis N. The JAX package
 uses one-hot reductions and matmuls in place of gathers (a TPU
 workaround); here they are plain gathers, which pick the same values.
 The tracker -> CP -> top-K chain of this module is the plain version of the
-CUDA kernel wrapped by ``ops/risk_kernel.py``.
+CUDA kernel wrapped by ``ops/risk_kernel.py``, in each of the kernel's
+three forms (:data:`FORMS`): ``"xla"``, the JAX package's XLA chain
+``update_tracks -> collision_probabilities -> select_top_k`` under the
+default quirks; ``"strict"``, the same chain under ``strict_quirks`` (the
+first track's closing speed for every track, and the reference's
+``sorted(desc)[-K:]`` top-K); ``"pallas"``, the arithmetic of the Pallas
+kernel ``crowdnav_tpu/ops/risk_pallas._kernel`` as the JAX package's CPU
+reference runs it (interpret mode, jitted), which sums and fuses some
+products in another order than the XLA chain.
 """
 from __future__ import annotations
 
@@ -20,6 +28,23 @@ from crowdnav_tpu_torch.ops import geom
 from crowdnav_tpu_torch.utils import numerics as nm
 
 INF = float("inf")
+FORMS = ("xla", "strict", "pallas")
+
+
+def chain_form(cfg: EnvConfig) -> str:
+    """The form of the tracker -> CP -> top-K chain that ``cfg`` runs:
+    ``"pallas"`` under ``risk_backend="pallas"``, ``"strict"`` under
+    ``strict_quirks``, else ``"xla"``. The Pallas form implements the
+    default quirks only, as in the JAX package."""
+    if cfg.risk_backend == "pallas":
+        if cfg.strict_quirks:
+            raise ValueError("risk_backend='pallas' implements the default "
+                             "quirks policy only; strict_quirks requires "
+                             "the xla backend")
+        return "pallas"
+    if cfg.risk_backend != "xla":
+        raise ValueError(f"unknown risk_backend {cfg.risk_backend!r}")
+    return "strict" if cfg.strict_quirks else "xla"
 
 
 class Segments(NamedTuple):
@@ -66,8 +91,6 @@ def _take(v, idx):
 def segment_scans(cfg: EnvConfig, scans, points) -> Segments:
     """Stages 1-4: label beams, group them into runs, confirm segment
     types. ``scans`` (N, n) rounded ranges, ``points`` (N, n, 2)."""
-    if cfg.strict_quirks:
-        raise NotImplementedError("strict_quirks is not ported")
     N, n = scans.shape
     S = cfg.max_segments
     dev = scans.device
@@ -102,8 +125,12 @@ def segment_scans(cfg: EnvConfig, scans, points) -> Segments:
 
     # 3. runs by bounding-box association of consecutive beams
     bbox = ground_truth_bbox_size(cfg)
-    side = nm.f32(2.0 * bbox)
-    assoc_next = (torch.abs(dx) < side) & (torch.abs(dy) < side)
+    if cfg.strict_quirks:
+        # the reference's literal rounded-IOU association
+        assoc_next = geom.rounded_overlap(dx, dy, 2.0 * bbox)
+    else:
+        side = nm.f32(2.0 * bbox)
+        assoc_next = (torch.abs(dx) < side) & (torch.abs(dy) < side)
     start = occupied & (~prv(occupied) | ~prv(assoc_next))
     start[:, 0] = occupied[:, 0]
     run_id_raw = torch.cumsum(start.to(torch.int32), dim=1,
@@ -135,7 +162,8 @@ def segment_scans(cfg: EnvConfig, scans, points) -> Segments:
                 & occupied[:, 0] & occupied[:, n - 1]
                 & (run_id[:, n - 1] == last_id)
                 & geom.boxes_associated(points[:, 0], points[:, n - 1],
-                                        bbox * 2.0))
+                                        bbox * 2.0,
+                                        rounded=cfg.strict_quirks))
     sl = torch.arange(S, device=dev)[None, :]
     dm = do_merge[:, None]
     first = sl == 0
@@ -182,11 +210,12 @@ def segment_scans(cfg: EnvConfig, scans, points) -> Segments:
                     center_dist=center_dist, count=seg_count)
 
 
-def update_tracks(cfg: EnvConfig, tracks: TrackState,
-                  segs: Segments) -> TrackState:
+def update_tracks(cfg: EnvConfig, tracks: TrackState, segs: Segments,
+                  form: str = "xla") -> TrackState:
     """Stages 5-6: IOU matching of live tracks to confirmed segments
     (first-index argmax), update, removal, and insertion of unclaimed
-    obstacle segments into free slots by rank."""
+    obstacle segments into free slots by rank. The Pallas form sums the
+    squares of the track's motion the other way round."""
     N, S = segs.confirmed.shape
     dev = tracks.valid.device
     iou = geom.box_iou(tracks.pos[:, :, None, :],
@@ -198,7 +227,12 @@ def update_tracks(cfg: EnvConfig, tracks: TrackState,
     new_pos = _take(segs.center_pos, best_j)
     new_dist = torch.gather(segs.center_dist, 1, best_j)
     delta = tracks.pos - new_pos                        # prev - curr
-    speed = nm.div_const(geom.norm(delta), cfg.dt)
+    if form == "pallas":
+        speed = nm.div_const(
+            nm.sqrt(nm.fma(delta[..., 0], delta[..., 0],
+                           delta[..., 1] * delta[..., 1])), cfg.dt)
+    else:
+        speed = nm.div_const(geom.norm(delta), cfg.dt)
     m2 = matched[..., None]
     u_pos = torch.where(m2, new_pos, tracks.pos)
     u_prev = torch.where(m2, tracks.pos, tracks.prev_pos)
@@ -233,21 +267,51 @@ def update_tracks(cfg: EnvConfig, tracks: TrackState,
 
 
 def collision_probabilities(cfg: EnvConfig, tracks: TrackState,
-                            robot_pos, robot_prev_pos):
+                            robot_pos, robot_prev_pos, form: str = "xla"):
     """Stage 7: collision-cone TTC -> CP per track. Returns (cp, ego),
-    each (N, T)."""
-    if cfg.strict_quirks:
-        raise NotImplementedError("strict_quirks is not ported")
-    motion = robot_pos - robot_prev_pos
-    agent_speed = nm.div_const(geom.norm(motion), cfg.dt)[:, None]
+    each (N, T). ``"strict"``: every track's closing speed is the first
+    valid track's. ``"pallas"``: the kernel's order of the sums and the
+    unit vector as a product with ``1 / max(norm, 1e-9)``. In both, the
+    jitted reference fuses the robot's speed into the resultant,
+    ``fma(|motion|, 1/dt, -speed)``."""
+    mx, my = (robot_pos - robot_prev_pos).unbind(-1)
     vo_shift = (tracks.prev_pos - tracks.pos) * tracks.has_prev[..., None]
     rel = (robot_pos[:, None, :] + vo_shift) - robot_prev_pos[:, None, :]
-    u = rel / torch.clamp_min(geom.norm(rel)[..., None], nm.f32(1e-9))
-    dist_cp = geom.line_circle_min_distance(
-        robot_prev_pos[:, None, :], u, tracks.pos,
-        cfg.collision_body_width)
+    if form == "pallas":
+        speed_raw = nm.sqrt(nm.fma(mx, mx, my * my))
+        rx, ry = rel[..., 0], rel[..., 1]
+        inv = nm.rdiv(1.0, torch.clamp_min(nm.sqrt(nm.fma(rx, rx, ry * ry)),
+                                           nm.f32(1e-9)))
+        ux, uy = rx * inv, ry * inv
+        cx = tracks.pos[..., 0] - robot_prev_pos[:, None, 0]
+        cy = tracks.pos[..., 1] - robot_prev_pos[:, None, 1]
+        b = nm.fma(cx, ux, cy * uy)
+        disc = nm.f32(cfg.collision_body_width ** 2) \
+            - nm.fma(-b, b, nm.fma(cx, cx, cy * cy))
+        sq = nm.sqrt(torch.clamp_min(disc, 0.0))
+        dist_cp = torch.where(
+            disc >= 0.0, torch.minimum(torch.abs(b - sq), torch.abs(b + sq)),
+            INF)
+    else:
+        speed_raw = nm.norm2(mx, my)
+        u = rel / torch.clamp_min(geom.norm(rel)[..., None], nm.f32(1e-9))
+        dist_cp = geom.line_circle_min_distance(
+            robot_prev_pos[:, None, :], u, tracks.pos,
+            cfg.collision_body_width)
+    if form == "xla":
+        resultant = nm.div_const(speed_raw, cfg.dt)[:, None] - tracks.speed
+    else:
+        obs_speed = tracks.speed
+        if form == "strict":
+            # the reference divides every track's TTC by the first track's
+            # closing speed
+            first = tracks.valid.to(torch.int8).argmax(dim=1, keepdim=True)
+            obs_speed = torch.where(tracks.valid.any(dim=1, keepdim=True),
+                                    torch.gather(tracks.speed, 1, first),
+                                    0.0)
+        resultant = nm.fma(speed_raw[:, None], nm.recip_f32(cfg.dt),
+                           -obs_speed).expand_as(tracks.speed)
     hit = torch.isfinite(dist_cp)
-    resultant = agent_speed - tracks.speed
     still = resultant == 0.0
     ttc = dist_cp / torch.where(still, 1.0, resultant)
     cp_ttc = geom.collision_prob_ttc(ttc, hit & ~still)
@@ -261,16 +325,28 @@ def collision_probabilities(cfg: EnvConfig, tracks: TrackState,
     return cp, ego
 
 
-def select_top_k(cfg: EnvConfig, tracks: TrackState, cp, live, robot_pos):
+def select_top_k(cfg: EnvConfig, tracks: TrackState, cp, live, robot_pos,
+                 form: str = "xla"):
     """Stage 8: the K highest-CP tracks in stable order (ties to the lower
-    slot, as ``lax.top_k``), padded with the robot pose. ``live`` (N,)."""
-    if cfg.strict_quirks:
-        raise NotImplementedError("strict_quirks is not ported")
+    slot, as ``lax.top_k``), padded with the robot pose. ``live`` (N,).
+    ``"strict"``: the reference's ``sorted(desc)[-K:]``, which keeps the K
+    lowest-CP tracks when more than K are valid, reported in descending CP
+    order (ties in the order the selection found them)."""
     K = cfg.k_obstacles
     score = torch.where(tracks.valid, cp, -INF)
+    if form == "strict":
+        overflow = (tracks.valid.sum(dim=1, keepdim=True) > K)
+        score = torch.where(tracks.valid, torch.where(overflow, -cp, cp),
+                            -INF)
     top_score, top_idx = torch.sort(score, dim=1, descending=True,
                                     stable=True)
     top_score, top_idx = top_score[:, :K], top_idx[:, :K]
+    if form == "strict":
+        key = torch.where(torch.isfinite(top_score),
+                          torch.gather(cp, 1, top_idx), -INF)
+        order = torch.sort(key, dim=1, descending=True, stable=True)[1]
+        top_score = torch.gather(top_score, 1, order)
+        top_idx = torch.gather(top_idx, 1, order)
     picked = live[:, None] & torch.isfinite(top_score)
     top_cp = torch.where(picked, torch.gather(cp, 1, top_idx), 0.0)
     entries = torch.cat([_take(tracks.pos, top_idx),
@@ -281,22 +357,27 @@ def select_top_k(cfg: EnvConfig, tracks: TrackState, cp, live, robot_pos):
 
 
 def track_cp_topk(cfg: EnvConfig, segs: Segments, tracks: TrackState,
-                  robot_pos, robot_prev_pos, compute_cp):
-    """The tracker -> CP -> top-K chain with the perceive-level reductions:
-    ``(new_tracks, top_cp (N,K), top_pose_vel (N,K,4), cp_max (N,),
-    ego_cp (N,))``. ``compute_cp`` (N,) bool."""
-    new_tracks = update_tracks(cfg, tracks, segs)
+                  robot_pos, robot_prev_pos, compute_cp, form: str = "xla"):
+    """The tracker -> CP -> top-K chain in ``form`` (:data:`FORMS`) with
+    the perceive-level reductions: ``(new_tracks, top_cp (N,K),
+    top_pose_vel (N,K,4), cp_max (N,), ego_cp (N,))``. ``compute_cp``
+    (N,) bool."""
+    if form not in FORMS:
+        raise ValueError(f"unknown chain form {form!r}")
+    new_tracks = update_tracks(cfg, tracks, segs, form)
     cp, ego = collision_probabilities(cfg, new_tracks, robot_pos,
-                                      robot_prev_pos)
+                                      robot_prev_pos, form)
     live = compute_cp & new_tracks.valid.any(dim=1)
-    top_cp, top_pv = select_top_k(cfg, new_tracks, cp, live, robot_pos)
+    top_cp, top_pv = select_top_k(cfg, new_tracks, cp, live, robot_pos,
+                                  form)
     cp_max = torch.where(live, top_cp.amax(dim=1), 0.0)
     ego_cp = torch.where(
         live, torch.where(new_tracks.valid, ego, 0.0).amax(dim=1), 0.0)
     return new_tracks, top_cp, top_pv, cp_max, ego_cp
 
 
-def risk_output(cfg: EnvConfig, segs: Segments, chain) -> RiskOutput:
+def risk_output(cfg: EnvConfig, segs: Segments, chain,
+                regions=None) -> RiskOutput:
     """Assemble a :class:`RiskOutput` from the segments and the outputs of
     the tracker -> CP -> top-K chain."""
     new_tracks, top_cp, top_pv, cp_max, ego_cp = chain
@@ -306,4 +387,24 @@ def risk_output(cfg: EnvConfig, segs: Segments, chain) -> RiskOutput:
         cp_max=cp_max, ego_cp=ego_cp,
         obstacle_seen=segs.is_obstacle.any(dim=1),
         ego_violation=(segs.is_obstacle & near).any(dim=1),
-        segments=segs)
+        segments=segs, segment_regions=regions)
+
+
+def perceive(cfg: EnvConfig, scans, points, tracks: TrackState, robot_pos,
+             robot_prev_pos, compute_cp, yaw=None) -> RiskOutput:
+    """The full pipeline for the batch (``risk.perceive`` of the JAX
+    package, vmapped): segmentation, the tracker -> CP -> top-K kernel
+    (``ops.risk_kernel``, in the config's form), the perceive-level
+    flags, and with ``yaw`` (N,) each valid segment's social-region code
+    (``geom.social_region``; 0 elsewhere). ``compute_cp`` (N,) bool."""
+    from crowdnav_tpu_torch.ops.risk_kernel import track_cp_topk_batch
+    segs = segment_scans(cfg, scans, points)
+    chain = track_cp_topk_batch(cfg, segs, tracks, robot_pos,
+                                robot_prev_pos, compute_cp)
+    regions = None
+    if yaw is not None:
+        regions = torch.where(
+            segs.valid, geom.social_region(robot_pos[:, None, :],
+                                           yaw[:, None], segs.center_pos,
+                                           segs.center_dist), 0)
+    return risk_output(cfg, segs, chain, regions)

@@ -19,6 +19,8 @@ machine where the script may import nothing of ``tests/``
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -27,6 +29,38 @@ from crowdnav_tpu_torch.utils.tree import to_device
 
 U32 = 2.0 ** -24
 U64 = 2.0 ** -53
+U_BF16 = 2.0 ** -8
+
+# the unit roundoff of the MLPs' compute dtype while :func:`lowp` is on
+# (bfloat16), None for float32 networks
+_LOWP = [None]
+
+
+@contextlib.contextmanager
+def lowp(u):
+    """Bound the MLPs of :func:`bmlp` / :func:`bmlp_back` as computed in a
+    storage format of unit roundoff ``u`` (TD3's ``compute_dtype=
+    "bfloat16"``: ``u = 2^-8``): every dense layer's input, kernel and
+    bias rounded to it, the products summed in float32 and the sum and the
+    bias addition each rounded to it; in the backward, each incoming
+    gradient and each of the layer's three products rounded to it. The
+    rest of the update (losses, targets, Adam) stays float32."""
+    prev, _LOWP[0] = _LOWP[0], u
+    try:
+        yield
+    finally:
+        _LOWP[0] = prev
+
+
+def bround(x, u):
+    """``x`` rounded to a format of unit roundoff ``u``."""
+    x = _b(x)
+    return Bnd(x.v, x.e + u * (np.abs(x.v) + x.e))
+
+
+def _lp(x):
+    """``x`` rounded to the MLPs' compute format (unchanged in float32)."""
+    return x if _LOWP[0] is None else bround(x, _LOWP[0])
 
 
 def gamma(m, u=U32):
@@ -201,24 +235,29 @@ def bconcat(parts, axis=-1):
                np.concatenate([p.e for p in parts], axis))
 
 
+def _dense(p, name, h):
+    z = blinear(h, _lp(p[f"{name}.weight"]), _lp(p[f"{name}.bias"]))
+    return _lp(_lp(z))     # the sum, then the bias addition
+
+
 def bmlp(p, prefix, x, n=3):
     """Forward of an ``n``-layer ReLU MLP; returns (out, [x, z1, h1, ...,
     z_{n-1}, h_{n-1}])."""
+    x = _lp(x)
     acts, h = [x], x
     for i in range(n - 1):
-        z = blinear(h, p[f"{prefix}dense{i}.weight"],
-                    p[f"{prefix}dense{i}.bias"])
+        z = _dense(p, f"{prefix}dense{i}", h)
         h = brelu(z)
         acts += [z, h]
-    out = blinear(h, p[f"{prefix}dense{n - 1}.weight"],
-                  p[f"{prefix}dense{n - 1}.bias"])
+    out = _dense(p, f"{prefix}dense{n - 1}", h)
     return out, tuple(acts)
 
 
 def _layer_back(p, name, x, dz, g):
-    g[f"{name}.weight"] = bmatmul(dz.T, x)
-    g[f"{name}.bias"] = bsum(dz, 0)
-    return bmatmul(dz, p[f"{name}.weight"])
+    dz = _lp(dz)
+    g[f"{name}.weight"] = _lp(bmatmul(dz.T, x))
+    g[f"{name}.bias"] = _lp(bsum(dz, 0))
+    return _lp(bmatmul(dz, _lp(p[f"{name}.weight"])))
 
 
 def bmlp_back(p, prefix, acts, dout, heads=None):
@@ -620,6 +659,10 @@ def check_update(agent, state, batch, noise, new_a, new_b, metrics_b=None):
     those of ``agent``'s own gradients from ``state``, evaluated on its
     device."""
     kind = type(agent).__name__
+    if getattr(agent, "dtype", torch.float32) == torch.bfloat16:
+        with lowp(U_BF16):
+            return _check_td3(agent, state, batch, noise, new_a, new_b,
+                              metrics_b)
     if kind == "DDPG":
         return _check_ddpg(agent, state, batch, new_a, new_b, metrics_b)
     if kind == "SAC":

@@ -27,12 +27,27 @@ these rules, and every kernel in ``kernels/csrc`` does the same arithmetic:
    routines compute, operation for operation (``libm_f32.cuh``; PyTorch's
    CUDA functions differ from them on about a sixth of all inputs).
 5. ``jax.lax.rsqrt`` is not correctly rounded: XLA's CPU backend takes the
-   x86 ``rsqrtps`` estimate and one Newton step (:func:`rsqrt`).
+   x86 ``rsqrtps`` estimate and one or two Newton steps, by CPU vendor
+   (:func:`rsqrt`, :data:`RSQRT_FORMS`).
+6. The Pallas kernels run in interpret mode on the CPU, jitted, and XLA
+   fuses their bodies by rules 1-4 as written, not as the sources read:
+   ``x / dt`` is still ``x * f32(1/dt)``; ``a*a + b*b`` fuses its first
+   product, ``fma(a, a, b*b)`` (the XLA chain's norms, by contrast, are
+   ``fma(b, b, a*a)``); ``yaw - i * deg`` is ``fma(-i, deg, yaw)``; a
+   product added to a difference fuses across it (the tracker's resultant
+   speed is ``fma(|motion|, 1/dt, -speed)``). How much fuses depends on
+   the program around an expression: under ``strict_quirks`` the jitted
+   step fuses that resultant and the chain jitted alone does not, so the
+   port follows the step.
+7. XLA folds the constants of a random draw into the scale applied to it
+   (``normal * c`` becomes ``erfinv(u) * f32(sqrt(2) * c)``), so a draw is
+   passed in as the scaled value the jitted step computes.
 """
 from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import dataclasses
 import functools
 import os
 
@@ -154,30 +169,83 @@ def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 atan2.launches = 0
 
 
-_RSQRT_TABLE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "assets", "rsqrt_table.npy")
+_ASSETS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets")
+
+
+@dataclasses.dataclass(frozen=True)
+class RsqrtForm:
+    """How XLA's CPU backend computes ``rsqrt`` on one vendor's x86 hosts:
+    the ``rsqrtps`` estimate, tabulated by ``scripts/rsqrt_table.py``,
+    and the number of Newton steps that refine it."""
+
+    vendor: str
+    table: str      # file name under assets/
+    newton_steps: int
+
+
+# Read from XLA's optimized LLVM IR and object code of a jitted
+# ``jax.lax.rsqrt`` (``XLA_FLAGS=--xla_dump_to=...``): on an Intel Xeon
+# with AVX-512, ``vrsqrtps`` on 256-bit vectors and two Newton steps (no
+# ``vrsqrt14ps``); on an AMD EPYC, ``rsqrtps`` and one Newton step.
+# Intel's and AMD's ``rsqrtps`` tables differ (4,357 of 8,192 entries).
+RSQRT_FORMS = {
+    "GenuineIntel": RsqrtForm("GenuineIntel", "rsqrt_table_intel.npy", 2),
+    "AuthenticAMD": RsqrtForm("AuthenticAMD", "rsqrt_table_amd.npy", 1),
+}
+
+
+def cpu_vendor(cpuinfo: str = "/proc/cpuinfo") -> str:
+    """The host CPU's ``vendor_id``."""
+    with open(cpuinfo) as fp:
+        for line in fp:
+            if line.startswith("vendor_id"):
+                return line.split(":", 1)[1].strip()
+    raise RuntimeError(f"no vendor_id in {cpuinfo}")
+
+
+@functools.lru_cache(maxsize=1)
+def rsqrt_form() -> RsqrtForm:
+    """The :class:`RsqrtForm` of this host, chosen at first use; both
+    devices use it, so that the card's learner equals the CPU's beside
+    it."""
+    vendor = cpu_vendor()
+    if vendor not in RSQRT_FORMS:
+        raise NotImplementedError(
+            f"no rsqrt form for CPU vendor {vendor!r} (known: "
+            f"{', '.join(RSQRT_FORMS)}); tabulate its estimate with "
+            f"scripts/rsqrt_table.py and read XLA's Newton steps from a "
+            f"dump of jitted jax.lax.rsqrt")
+    return RSQRT_FORMS[vendor]
+
+
+def rsqrt_table_path(form: RsqrtForm) -> str:
+    return os.path.join(_ASSETS, form.table)
 
 
 @functools.lru_cache(maxsize=4)
 def _rsqrt_estimates(device) -> torch.Tensor:
-    """(8192,) int32 bit patterns of the ``rsqrtps`` estimate of x in
-    [1, 4), indexed by the exponent's last bit and the top 12 mantissa
-    bits (``scripts/rsqrt_table.py`` wrote the mantissas)."""
-    mant = np.load(_RSQRT_TABLE).astype(np.int32)
+    """(8192,) int32 bit patterns of this host's ``rsqrtps`` estimate of
+    x in [1, 4), indexed by the exponent's last bit and the top 12
+    mantissa bits (``scripts/rsqrt_table.py`` wrote the mantissas)."""
+    mant = np.load(rsqrt_table_path(rsqrt_form())).astype(np.int32)
     return torch.from_numpy((mant << 11) | (126 << 23)).to(device)
 
 
 def rsqrt(x: torch.Tensor) -> torch.Tensor:
-    """``jax.lax.rsqrt`` as XLA's CPU backend computes it: the ``rsqrtps``
-    estimate ``y`` (12 bits, from the table of the host the tests compare
-    with), then ``fma(-0.5 y, fma(x y, y, -1), y)`` for positive normal
-    ``x``; the estimate itself (+-inf, 0 or NaN) for the other classes.
-    The same integer and float64 operations on either device."""
+    """``jax.lax.rsqrt`` as XLA's CPU backend computes it on this host
+    (:func:`rsqrt_form`): the ``rsqrtps`` estimate ``y`` (12 bits), then
+    ``y = fma(-0.5 y, fma(x y, y, -1), y)`` once or twice for positive
+    normal ``x``; the estimate itself (+-inf, 0 or NaN) for the other
+    classes. The same integer and float64 operations on either device."""
     bits = x.contiguous().view(torch.int32)
     biased = (bits >> 23) & 255
     est = _rsqrt_estimates(x.device)[(bits >> 11) & 0x1FFF]
     y = (est - (((biased - 127) >> 1) << 23)).view(torch.float32)
-    refined = fma(y * -0.5, fma(x * y, y, -1.0), y)
+    refined = y
+    for _ in range(rsqrt_form().newton_steps):
+        refined = fma(refined * -0.5, fma(x * refined, refined, -1.0),
+                      refined)
     normal = (bits > 0) & (biased > 0) & (biased < 255)
     subnormal = (biased == 0) & (x != 0)
     other = torch.rsqrt(torch.where(subnormal, x * 0.0, x))

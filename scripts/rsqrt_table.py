@@ -1,20 +1,21 @@
 """Tabulate the host CPU's ``rsqrtps`` approximation, the first step of
 XLA's CPU ``rsqrt`` (the port's ``utils/numerics.rsqrt`` replays it).
 
-    python scripts/rsqrt_table.py \
-        [--out crowdnav_tpu_torch/assets/rsqrt_table.npy]
+    python scripts/rsqrt_table.py [--out FILE]
 
 XLA's CPU backend lowers ``jax.lax.rsqrt`` of a positive normal float32 to
-the x86 ``rsqrtps`` estimate ``y`` and one Newton step with two fused
-multiply-adds, ``fma(-0.5 y, fma(x y, y, -1), y)``. The estimate of ``x``
+the x86 ``rsqrtps`` estimate ``y`` and one or two Newton steps with two
+fused multiply-adds each, ``fma(-0.5 y, fma(x y, y, -1), y)``
+(``utils/numerics.RSQRT_FORMS`` says which, by CPU vendor). The estimate of ``x``
 in [1, 4) depends only on the exponent's last bit and the top 12 mantissa
 bits, and is 0.5 <= y < 1 with 12 significant mantissa bits; for other
 exponents it scales by powers of two. This script runs the instruction
 (a C helper built with ``cc -mavx``) on every such key, checks both
 properties on every float32 in [1, 4) and on random exponents, and writes
-the 8,192 12-bit mantissas as uint16. Vendors' ``rsqrtps`` tables differ:
-the committed table is the one of the host whose jitted JAX the port's
-tests compare with (an AMD EPYC).
+the 8,192 12-bit mantissas as uint16. Vendors' ``rsqrtps`` tables differ,
+so each vendor's table is committed under ``crowdnav_tpu_torch/assets/``
+(``rsqrt_table_intel.npy``, ``rsqrt_table_amd.npy``); the default
+``--out`` is the table of this host's vendor.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import json
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 
 import numpy as np
@@ -90,9 +92,15 @@ def check_scaling(hw, tab, n=1 << 22, seed=0):
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--out",
-                   default="crowdnav_tpu_torch/assets/rsqrt_table.npy")
+    p.add_argument("--out", default=None,
+                   help="default: the committed table of this host's "
+                        "CPU vendor")
     args = p.parse_args(argv)
+    if args.out is None:
+        sys.path.insert(0, os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        from crowdnav_tpu_torch.utils import numerics as nm
+        args.out = nm.rsqrt_table_path(nm.rsqrt_form())
     hw = _hardware()
     tab = table(hw)
     bad = check_scaling(hw, tab)

@@ -15,7 +15,8 @@ from crowdnav_tpu.envs import CrowdEnv, make_config
 from crowdnav_tpu_torch.envs import config as tcfg
 from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv as TCrowdEnv
 from test_torch_world import jax_crowd_draws, jax_reset_draws
-from torch_parity import assert_env_state_equal, env_state_to_torch
+from torch_parity import (assert_env_state_equal, env_state_to_torch,
+                          jax_noise_draws)
 
 torch.set_num_threads(1)
 N, STEPS = 16, 12
@@ -114,3 +115,50 @@ def test_state_variants_match_jax(ablation):
         np.testing.assert_array_equal(got.reward.numpy(),
                                       np.asarray(out.reward))
         js = out.state
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(risk_backend="pallas"), dict(lidar_backend="pallas"),
+    dict(risk_backend="pallas", lidar_backend="pallas"),
+    dict(strict_quirks=True), dict(actuation_noise=0.05),
+    dict(dt_jitter=0.15), dict(lidar_noise=0.005),
+    dict(actuation_noise=0.05, dt_jitter=0.15, lidar_noise=0.005,
+         risk_backend="pallas", lidar_backend="pallas")],
+    ids=["risk_pallas", "lidar_pallas", "both_pallas", "strict",
+         "actuation_noise", "dt_jitter", "lidar_noise", "all_knobs"])
+def test_step_batch_matches_jax_under_backends_and_knobs(overrides):
+    """``CrowdEnv.step_batch`` under each backend, the strict quirks and
+    each noise knob, against the jitted JAX ``step_batch`` of the same
+    config over a rollout with resets: observations, rewards, dones and
+    every state field bit-equal (the noise knobs' draws passed in from
+    JAX's keys)."""
+    kw = dict(jitter=1.0, max_steps=8, **overrides)
+    jc = make_config("crowd_dense", "crowd", **kw)
+    tc = tcfg.make_config("crowd_dense", "crowd", **kw)
+    jenv = CrowdEnv(jc)
+    tenv = _port_env(jenv, tc)
+    n = 12
+    js, _ = jax.jit(jax.vmap(jenv.reset))(
+        jax.random.split(jax.random.PRNGKey(7), n))
+    step = jax.jit(jenv.step_batch)
+    rng = np.random.default_rng(3)
+    resets = 0
+    for t in range(11):
+        act = rng.uniform([0.0, -2.0], [0.22, 2.0], (n, 2)).astype(
+            np.float32)
+        got = tenv.step_batch(env_state_to_torch(js), torch.from_numpy(act),
+                              vel_draw=jax_crowd_draws(jc, js),
+                              noise=jax_noise_draws(jc, js))
+        resets += int(np.asarray(js.done).sum())
+        out = step(js, jnp.asarray(act))
+        msg = f"step {t}"
+        np.testing.assert_array_equal(got.obs.numpy(), np.asarray(out.obs),
+                                      err_msg=f"{msg} obs")
+        np.testing.assert_array_equal(got.reward.numpy(),
+                                      np.asarray(out.reward),
+                                      err_msg=f"{msg} reward")
+        np.testing.assert_array_equal(got.done.numpy(), np.asarray(out.done),
+                                      err_msg=f"{msg} done")
+        assert_env_state_equal(got.state, out.state, msg)
+        js = out.state
+    assert resets > 0, "the rollout never exercised the auto-reset"

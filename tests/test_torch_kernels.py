@@ -206,3 +206,57 @@ def test_timing_copies_and_clones():
     assert len(ptrs) == 4
     assert all(torch.equal(s[2], args[2]) for s in sets)
 
+
+
+@pytest.mark.parametrize("p", [0, 6, 14, 20])
+def test_raycast_pallas_work_is_the_plain_tensors(p):
+    """The Pallas form reads the yaw instead of its trig and the beam
+    tables: its byte count is the Pallas plain version's tensors; per beam
+    it does the angle's multiply-add in float32 and the C library's cos
+    and sin in float64."""
+    args = _raycast_args(7, p)
+    pos, peds = args[0], args[5]
+    yaw = torch.from_numpy(np.random.default_rng(1).uniform(
+        -np.pi, np.pi, 7).astype(np.float32))
+    out = lidar.raycast_pallas_plain(pos, yaw, peds, B, *args[6:])
+    hits = roofline.raycast_pallas_hits(pos, yaw, peds, B, R2)
+    nbytes, ops32, ops64 = roofline.raycast_pallas_work(7, B, p, hits)
+    assert nbytes == sum(t.nbytes for t in (pos, yaw, peds, out))
+    assert ops32 == 7 * B * (11 + 5 * p) + 3 * hits + 5 * 7 * p
+    assert ops64 == 7 * B * 2 * roofline.LIBM_SINCOS_F64_OPS
+    ms, by = roofline.mixed_bound_ms(nbytes, ops32, ops64)
+    assert ms >= roofline.bound_ms(nbytes, ops32)[0]
+    assert by in ("bytes", "operations")
+
+
+def test_raycast_pallas_hits_follow_the_pallas_directions():
+    """The hit count of the Pallas form is that of its own beam
+    directions (here, one pedestrian ahead: the same 37 beams)."""
+    pos, yaw = torch.zeros(1, 2), torch.zeros(1)
+    peds = torch.tensor([[[0.3, 0.0]]])
+    assert roofline.raycast_pallas_hits(pos, yaw, peds, B, R2) == 37
+
+
+@pytest.mark.parametrize("form", risk.FORMS)
+def test_track_cp_topk_forms_move_the_same_bytes(form):
+    """Every form reads and writes the same tensors; the strict form adds
+    the reorder of the picked tracks to the operations."""
+    inputs, outputs = _chain_tensors(9)
+    nbytes, ops = roofline.track_cp_topk_work(9, S, T, K, form)
+    assert nbytes == sum(t.nbytes for t in inputs + outputs)
+    base = roofline.track_cp_topk_work(9, S, T, K)[1]
+    assert ops == base + (9 * T * T * 3 if form == "strict" else 0)
+
+
+@pytest.mark.parametrize("overrides,form", [
+    ({}, "xla"), ({"risk_backend": "pallas"}, "pallas"),
+    ({"strict_quirks": True}, "strict")])
+def test_chain_form_follows_the_config(overrides, form):
+    import dataclasses
+    from crowdnav_tpu_torch.kernels import build
+    cfg = dataclasses.replace(CFG, **overrides)
+    assert risk.chain_form(cfg) == form
+    assert form in build.TRACK_FORMS
+    with pytest.raises(ValueError, match="strict_quirks"):
+        risk.chain_form(dataclasses.replace(CFG, risk_backend="pallas",
+                                            strict_quirks=True))

@@ -89,3 +89,46 @@ def test_raycast_matches_pallas_interpret(n, p):
                             interpret=True)
     np.testing.assert_allclose(_port_scan(pos, yaw, peds).numpy(),
                                np.asarray(ref), atol=2e-5)
+
+
+@pytest.mark.parametrize("p", [6, 14, 20])
+@pytest.mark.parametrize("half", [1.45, 2.45], ids=["3m_room", "5m_room"])
+def test_pallas_form_matches_pallas_kernel(p, half):
+    """The raycast kernel's Pallas form (its plain version, which
+    ``scan_batch_pallas`` runs on CPU tensors) against
+    ``lidar_pallas.scan_batch_pallas`` as the JAX package's CPU tests run
+    it (interpret mode, jitted): bit for bit, raw ranges, at the
+    pedestrian counts of ``crowd_sparse``, ``crowd_dense`` and
+    ``crowd_20``/``test_20`` and in both room sizes."""
+    rng = np.random.default_rng(200 + p)
+    n = 48
+    lim = half - 0.1
+    pos = rng.uniform(-lim, lim, (n, 2)).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    peds = rng.uniform(-lim, lim, (n, p, 2)).astype(np.float32)
+    # pedestrians right next to the robot, so that near hits and the
+    # min-range clip occur
+    peds[:, 0] = pos + np.float32(0.07)
+    ref = np.asarray(scan_batch_pallas(
+        jnp.asarray(pos), jnp.asarray(yaw), jnp.asarray(peds), R, half, MAX,
+        MIN, interpret=None))
+    before = tlidar.scan_batch_pallas.launches
+    got = tlidar.scan_batch_pallas(torch.from_numpy(pos),
+                                   torch.from_numpy(yaw),
+                                   torch.from_numpy(peds), R, half, MAX, MIN)
+    assert tlidar.scan_batch_pallas.launches == before
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  ref.view(np.uint32))
+    assert (ref < MAX).mean() > 0.02 and (ref == MIN).any()
+
+
+def test_pallas_form_differs_from_xla_form():
+    """The two forms compute each beam's direction differently, so their
+    raw ranges differ in the last bits somewhere: a wrapper that ran the
+    other form would fail the tests above."""
+    pos, yaw, peds = _inputs(7, 64, 14)
+    a = tlidar.scan_batch_pallas(torch.from_numpy(pos), torch.from_numpy(yaw),
+                                 torch.from_numpy(peds), R, H, MAX, MIN)
+    b = _port_scan(pos, yaw, peds)
+    assert (a != b).any()
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5)

@@ -4,10 +4,11 @@ jitted ``jax.lax.rsqrt``, and its RMSprop (``agents/optim.py``) against
 bit.
 
 XLA's CPU backend computes ``rsqrt`` of a positive normal float32 as the
-x86 ``rsqrtps`` estimate refined by one Newton step with two fused
-multiply-adds; the port replays that from a table of the estimate
-(``scripts/rsqrt_table.py``). The estimate is the host CPU's: the table
-is the one of the hosts these tests run on."""
+x86 ``rsqrtps`` estimate refined by Newton steps with two fused
+multiply-adds each (two on Intel hosts, one on AMD hosts); the port
+replays that from a table of the estimate (``scripts/rsqrt_table.py``).
+The estimate is the host CPU's: the port selects the table and the
+number of steps of this host's vendor (``numerics.rsqrt_form``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,8 +49,8 @@ def test_rsqrt_is_bit_equal_to_xla(kind):
 
 
 def test_rsqrt_table_is_the_hosts_estimate():
-    """The committed table is this host's ``rsqrtps`` (when a C compiler
-    is present to run it)."""
+    """The table of the form selected on this host is this host's
+    ``rsqrtps`` (when a C compiler is present to run it)."""
     import importlib.util
     import os
     import shutil
@@ -62,7 +63,8 @@ def test_rsqrt_table_is_the_hosts_estimate():
     spec.loader.exec_module(mod)
     hw = mod._hardware()
     tab = mod.table(hw)
-    np.testing.assert_array_equal(tab, np.load(nm._RSQRT_TABLE))
+    np.testing.assert_array_equal(
+        tab, np.load(nm.rsqrt_table_path(nm.rsqrt_form())))
     assert mod.check_scaling(hw, tab, n=1 << 18) == 0
 
 
@@ -85,3 +87,32 @@ def test_rmsprop_is_bit_equal_to_optax():
                                       err_msg=f"step {step}")
         np.testing.assert_array_equal(tstate.nu.numpy(),
                                       np.asarray(jstate[0].nu))
+
+
+@pytest.mark.parametrize("vendor,steps", [("GenuineIntel", 2),
+                                          ("AuthenticAMD", 1)])
+def test_rsqrt_form_follows_the_cpu_vendor(vendor, steps, tmp_path,
+                                           monkeypatch):
+    """The form is chosen from ``/proc/cpuinfo``'s vendor (never from
+    JAX): each vendor's committed table (8,192 12-bit mantissas, the two
+    vendors' differing) and its number of Newton steps; an unknown vendor
+    raises rather than replaying another's estimate."""
+    info = tmp_path / "cpuinfo"
+    info.write_text(f"processor\t: 0\nvendor_id\t: {vendor}\nflags\t: fma\n")
+    assert nm.cpu_vendor(str(info)) == vendor
+    form = nm.RSQRT_FORMS[vendor]
+    assert form.newton_steps == steps
+    tab = np.load(nm.rsqrt_table_path(form))
+    assert tab.shape == (8192,) and tab.max() < 4096
+    others = [np.load(nm.rsqrt_table_path(f))
+              for v, f in nm.RSQRT_FORMS.items() if v != vendor]
+    assert all((o != tab).sum() > 1000 for o in others)
+    monkeypatch.setattr(nm, "cpu_vendor", lambda *a: "SomeOtherVendor")
+    nm.rsqrt_form.cache_clear()
+    try:
+        with pytest.raises(NotImplementedError, match="SomeOtherVendor"):
+            nm.rsqrt_form()
+    finally:
+        monkeypatch.undo()
+        nm.rsqrt_form.cache_clear()
+    assert nm.rsqrt_form().vendor == nm.cpu_vendor()

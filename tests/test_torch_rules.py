@@ -146,3 +146,41 @@ def test_trig_wrappers_send_non_cpu_tensors_to_the_kernel():
         with pytest.raises(ValueError, match="CUDA"):
             fn(*args)
     assert nm.sincos.launches == 0 and nm.atan2.launches == 0
+
+
+@pytest.mark.parametrize("form", ["pallas", "strict"])
+def test_new_kernel_forms_send_non_cpu_tensors_to_the_kernel(form):
+    """The Pallas form of the raycast and the Pallas and strict forms of
+    the tracker kernel: a tensor that is not on the CPU goes to the
+    kernel's binding (which refuses all but CUDA tensors), never to the
+    plain version, and no count moves."""
+    import dataclasses
+    from crowdnav_tpu_torch.envs.config import make_config
+    from crowdnav_tpu_torch.envs.world import init_state
+    from crowdnav_tpu_torch.ops import lidar, risk
+    from crowdnav_tpu_torch.ops.risk_kernel import track_cp_topk_batch
+    meta = torch.device("meta")
+    n, p = 4, 14
+    with pytest.raises(ValueError, match="CUDA"):
+        lidar.scan_batch_pallas(torch.zeros(n, 2, device=meta),
+                                torch.zeros(n, device=meta),
+                                torch.zeros(n, p, 2, device=meta), 0.05,
+                                1.45, 0.6, 0.08)
+    assert lidar.scan_batch_pallas.launches == 0
+    cfg = make_config("crowd_dense", "crowd")
+    cfg = dataclasses.replace(cfg, **({"risk_backend": "pallas"}
+                                      if form == "pallas"
+                                      else {"strict_quirks": True}))
+    st = init_state(cfg, n, "cpu")
+    segs = risk.Segments(
+        *(torch.zeros(n, cfg.max_segments, *s, dtype=d, device=meta)
+          for s, d in (((), torch.bool), ((), torch.bool), ((), torch.bool),
+                       ((2,), torch.float32), ((), torch.float32),
+                       ((), torch.int32))))
+    tracks = st.tracks.map(lambda a: a.to(meta))
+    with pytest.raises(ValueError, match="CUDA"):
+        track_cp_topk_batch(cfg, segs, tracks, st.pos.to(meta),
+                            st.prev_pos.to(meta),
+                            torch.ones(n, dtype=torch.bool, device=meta))
+    assert track_cp_topk_batch.launches == 0
+    assert track_cp_topk_batch.form_launches[form] == 0

@@ -20,7 +20,8 @@ from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv as TCrowdEnv
 from crowdnav_tpu_torch.envs.simple_env import DISCRETE_ACTIONS_TABLE
 from crowdnav_tpu_torch.envs.simple_env import SimpleEnv as TSimpleEnv
 from test_torch_world import jax_crowd_draws, jax_reset_draws
-from torch_parity import assert_env_state_equal, env_state_to_torch
+from torch_parity import (assert_env_state_equal, env_state_to_torch,
+                          jax_noise_draws)
 
 torch.set_num_threads(1)
 N, STEPS = 16, 14
@@ -35,13 +36,28 @@ def port_env(cls, jenv, tc):
     return env
 
 
+def jax_reset_lidar_noise(cfg, keys):
+    """The reset observation's lidar noise of the JAX reset from ``keys``
+    (drawn from the fresh state's key), or None without the knob."""
+    if cfg.lidar_noise <= 0.0:
+        return None
+    from crowdnav_tpu.envs import world as jworld
+
+    def one(key):
+        st = jworld.init_state(cfg, key)
+        return jax.random.normal(jax.random.fold_in(st.key, 7),
+                                 (cfg.n_scans,)) * cfg.lidar_noise
+    return torch.from_numpy(np.array(jax.jit(jax.vmap(one))(keys)))
+
+
 def _rollout(jc, jenv, tenv, jstep, tstep, actions, seed):
     """``STEPS`` steps from JAX's reset states, each side from JAX's state;
     every output bit-equal. Returns the number of auto-resets."""
     keys = jax.random.split(jax.random.PRNGKey(seed), N)
     js, jobs = jax.jit(jax.vmap(jenv.reset))(keys)
     draws = jax_reset_draws(jc, keys) if jc.start_pos_jitter else None
-    ts, tobs = tenv.reset(N, torch.Generator().manual_seed(0), draws=draws)
+    ts, tobs = tenv.reset(N, torch.Generator().manual_seed(0), draws=draws,
+                          lidar_noise=jax_reset_lidar_noise(jc, keys))
     np.testing.assert_array_equal(tobs.numpy(), np.asarray(jobs))
     assert_env_state_equal(ts, js, "reset")
     resets = 0
@@ -49,7 +65,8 @@ def _rollout(jc, jenv, tenv, jstep, tstep, actions, seed):
     for t in range(STEPS):
         act = actions(rng)
         got = tstep(env_state_to_torch(js), torch.from_numpy(act),
-                    vel_draw=jax_crowd_draws(jc, js))
+                    vel_draw=jax_crowd_draws(jc, js),
+                    noise=jax_noise_draws(jc, js))
         resets += int(np.asarray(js.done).sum())
         out = jstep(js, jnp.asarray(act))
         msg = f"step {t}"
@@ -151,3 +168,44 @@ def test_eval_world_step_matches_jax(world, behavior):
                                                        **kw))
     _rollout(jc, jenv, tenv, jax.jit(jenv.step_batch), tenv.step_batch,
              _continuous, 5)
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(strict_quirks=True), dict(lidar_backend="pallas"),
+    dict(actuation_noise=0.05, dt_jitter=0.15, lidar_noise=0.005)],
+    ids=["strict", "lidar_pallas", "noise_knobs"])
+@pytest.mark.parametrize("discrete", [False, True])
+def test_simple_env_knobs_match_jax(overrides, discrete):
+    """``SimpleEnv`` under ``strict_quirks`` and the noise knobs (their
+    draws passed in from JAX's keys) against the jitted JAX step, bit for
+    bit. The JAX ``SimpleEnv`` runs the XLA raycast whatever the
+    ``lidar_backend``; under ``"pallas"`` the port runs the raycast's
+    Pallas form, so that case holds the port's step against the JAX step
+    with its observation's scans taken from ``scan_batch_pallas``."""
+    kw = dict(jitter=1.0, max_steps=6, **overrides)
+    jc = make_config("crowd_sparse", "random", **kw)
+    jenv = SimpleEnv(jc)
+    tenv = port_env(TSimpleEnv, jenv, tcfg.make_config(
+        "crowd_sparse", "random", **kw))
+    if discrete:
+        jstep = jax.jit(jax.vmap(jenv.step_discrete))
+        tstep, actions = tenv.step_discrete, _discrete
+    else:
+        jstep = jax.jit(jax.vmap(jenv.step))
+        tstep, actions = tenv.step_batch, _continuous
+    if overrides.get("lidar_backend") == "pallas":
+        from crowdnav_tpu.ops.lidar_pallas import scan_batch_pallas
+        c = jc
+        xla_step = jstep
+
+        def jstep(js, act):   # the JAX step with the Pallas form's scans
+            out = xla_step(js, act)
+            st = out.state
+            scans = jnp.round(scan_batch_pallas(
+                st.pos, st.yaw, st.ped_pos, c.ped_radius, c.room_half_inner,
+                c.max_scan_range, c.lidar_min_range, c.n_scans), 3)
+            done_before = js.done[:, None]
+            obs = out.obs.at[:, :c.n_scans].set(
+                jnp.where(done_before, out.obs[:, :c.n_scans], scans))
+            return out._replace(obs=obs)
+    assert _rollout(jc, jenv, tenv, jstep, tstep, actions, 5) > 0

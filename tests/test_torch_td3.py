@@ -420,3 +420,75 @@ def test_double_critic_module_equals_functional_form():
     f1, f2 = critic_apply(tagent.critic_params(flat), b.obs, b.action)
     assert torch.equal(q1, f1) and torch.equal(q2, f2)
     assert dataclasses.is_dataclass(tagent.init_state(0))
+
+
+# ---- bfloat16 learner (compute_dtype="bfloat16") ----
+
+@pytest.mark.parametrize("louder", [False, True],
+                         ids=["init", "loud_actions"])
+def test_bfloat16_update_is_within_the_derived_bound(louder):
+    """``compute_dtype="bfloat16"``, as ``tests/test_agents.py``'s
+    ``test_td3_bfloat16_compute_dtype`` builds it: parameters and Adam
+    float32, actions and Q values float32; four updates, each from the
+    JAX state of the one before, held to the JAX package's bfloat16 update
+    through ``check_update``, which bounds the networks with every
+    bfloat16 rounding of the forward and the backward
+    (``error_bounds.lowp``, u = 2^-8) and the rest in float32."""
+    jagent, tagent = _agents(compute_dtype="bfloat16")
+    jupdate = jax.jit(lambda s, b, n: jagent.update(
+        s, b, jax.random.PRNGKey(0), smoothing_noise=n))
+    jstate = jax.jit(jagent.init)(jax.random.PRNGKey(9))
+    if louder:
+        def scale(params):
+            params = jax.tree.map(np.array, params)
+            for head in ("q1", "q2"):
+                params["params"][head]["Dense_0"]["kernel"][OBS_DIM:] *= 30.0
+            return jax.tree.map(jnp.asarray, params)
+        jstate = jstate.replace(critic_params=scale(jstate.critic_params),
+                                critic_target=scale(jstate.critic_target))
+    assert all(p.dtype == jnp.float32
+               for p in jax.tree.leaves(jstate.actor_params))
+    rng = np.random.default_rng(21)
+    shares = []
+    for step in range(4):
+        b = _batch(rng)
+        noise = np.array(jax.random.normal(jax.random.PRNGKey(200 + step),
+                                           (BATCH, 2)))
+        tstate = to_port(tagent, jstate)
+        new_j, mj = jupdate(jstate, _jbatch(b), jnp.asarray(noise))
+        tb, tn = _tbatch(b), torch.from_numpy(noise)
+        new_t, mt = tagent.update(tstate, tb, smoothing_noise=tn)
+        assert new_t.actor_params.dtype == torch.float32
+        assert all(torch.isfinite(v) for v in mt.values())
+        jmetrics = {k: torch.from_numpy(np.array(v)) for k, v in mj.items()}
+        shares.append(check_update(tagent, tstate, tb, tn, new_t,
+                                   to_port(tagent, new_j), jmetrics))
+        jstate = new_j
+    grads = [s[k] for s in shares for k in ("critic_grad", "actor_grad")]
+    assert max(grads) < 1.0, shares
+
+
+def test_bfloat16_networks_round_as_flax():
+    """The bfloat16 actor and critics against flax's ``Dense(dtype=
+    bfloat16)`` modules of the JAX TD3 on the same parameters: within the
+    derived bound of the bfloat16 forward (``error_bounds.lowp``), and
+    not equal to the float32 networks (the compute dtype is used)."""
+    from crowdnav_tpu_torch.utils import error_bounds as eb
+    jagent, tagent = _agents(compute_dtype="bfloat16")
+    jstate = jax.jit(jagent.init)(jax.random.PRNGKey(3))
+    tstate = to_port(tagent, jstate)
+    rng = np.random.default_rng(2)
+    obs = _batch(rng)[0].astype(np.float32)
+    jact = np.asarray(jagent.actor.apply(jstate.actor_params, obs))
+    tact = tagent.act(torch.from_numpy(obs), state=tstate).numpy()
+    p = {k: v.double().numpy() for k, v in
+         tagent.actor_params(tstate.actor_params).items()}
+    with eb.lowp(eb.U_BF16):
+        sig, th, _ = eb._actor_heads_bnd(p, obs.astype(np.float64))
+        bnd = eb._scaled(tagent.cfg, sig, th)
+    eb.within("port bf16 actor", tact, bnd)
+    eb.within("flax bf16 actor", jact, bnd)
+    f32 = TD3(TD3Config(hidden=HIDDEN, batch_size=BATCH), OBS_DIM,
+              device="cpu")
+    assert not np.array_equal(
+        tact, f32.act(torch.from_numpy(obs), state=tstate).numpy())

@@ -37,6 +37,7 @@ from crowdnav_tpu.parallel import Trainer as JTrainer
 from crowdnav_tpu.parallel import TrainerConfig as JTrainerConfig
 from crowdnav_tpu_torch.agents.replay import Transition
 from crowdnav_tpu_torch.agents.td3 import TD3, TD3Config
+from crowdnav_tpu_torch.drivers import evaluate as tevaluate
 from crowdnav_tpu_torch.drivers import train as ttrain
 from crowdnav_tpu_torch.envs import config as tcfg
 from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv as TCrowdEnv
@@ -344,14 +345,58 @@ def test_full_checkpoint_round_trips(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--algo", "ddpg", "--learner-dtype", "bfloat16"], ["--n-devices", "2"],
-    ["--multihost"],
-    ["--profile-dir", "x"], ["--actuation-noise", "0.1"],
-    ["--dt-jitter", "0.1"], ["--lidar-noise", "0.01"],
-    ["--learner-dtype", "bfloat16"], ["--risk-backend", "pallas"]])
+    ["--multihost"], ["--profile-dir", "x"]])
 def test_train_driver_refuses_unported_options(flags, tmp_path):
     argv = ["--algo", "td3", "--device", "cpu", "--outdir", str(tmp_path)]
     with pytest.raises(SystemExit, match="not ported"):
         ttrain.main(argv + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--actuation-noise", "0.05"], ["--dt-jitter", "0.15"],
+    ["--lidar-noise", "0.005"], ["--learner-dtype", "bfloat16"],
+    ["--risk-backend", "pallas"],
+    ["--risk-backend", "pallas", "--actuation-noise", "0.05", "--dt-jitter",
+     "0.15", "--lidar-noise", "0.005", "--learner-dtype", "bfloat16"]],
+    ids=["actuation_noise", "dt_jitter", "lidar_noise", "bf16_learner",
+         "risk_pallas", "all_together"])
+def test_train_driver_runs_the_noise_backend_and_dtype_options(flags,
+                                                              tmp_path,
+                                                              capsys):
+    """The noise knobs, the Pallas risk backend and TD3's bfloat16 learner
+    run a tiny CPU training to its end and reach the env's config and the
+    agent's; ``evaluate`` reads the agent checkpoint back with its
+    config."""
+    out = str(tmp_path)
+    argv = ["--algo", "td3", "--device", "cpu", "--n-envs", "8", "--chunk",
+            "4", "--env-steps", "64", "--updates-per-step", "2",
+            "--batch-size", "16", "--learn-start", "16", "--max-steps", "16",
+            "--jitter", "1.0", "--buffer-size", "64", "--outdir", out]
+    args = ttrain.parser().parse_args(argv + flags)
+    trainer = ttrain.build(args)
+    cfg = trainer.env.cfg
+    want = {"--actuation-noise": ("actuation_noise", 0.05),
+            "--dt-jitter": ("dt_jitter", 0.15),
+            "--lidar-noise": ("lidar_noise", 0.005),
+            "--risk-backend": ("risk_backend", "pallas")}
+    for flag in flags:
+        if flag in want:
+            field, value = want[flag]
+            assert getattr(cfg, field) == value
+    if "--learner-dtype" in flags:
+        assert trainer.agent.dtype == torch.bfloat16
+    ttrain.main(argv + flags)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert lines[-1]["event"] == "done"
+    meta = tckpt.load_run_metadata(os.path.join(out, "agent_ckpt_td3"))
+    dtype = "bfloat16" if "--learner-dtype" in flags else "float32"
+    assert meta["agent_config"]["compute_dtype"] == dtype
+    res = tevaluate.main(["--suite", "train", "--checkpoint",
+                          os.path.join(out, "agent_ckpt_td3"), "--n-envs",
+                          "4", "--max-steps", "8", "--outdir", out,
+                          "--device", "cpu"])
+    assert res and res[0]["episodes"] >= 0
 
 
 def test_episode_logger_extra_headers_match_jax(tmp_path):
@@ -369,3 +414,21 @@ def test_episode_logger_extra_headers_match_jax(tmp_path):
         cls(str(tmp_path / d), "x", extra_headers=extra + ["more"])
     assert (tmp_path / "j" / "x.csv").read_text() == \
         (tmp_path / "t" / "x.csv").read_text()
+
+
+def test_build_takes_config_overrides():
+    """``build``'s overrides reach the env's config (the fields the JAX
+    driver's command line does not expose: the lidar backend, the strict
+    quirks), and the config refuses the Pallas tracker with strict
+    quirks, as the JAX package does."""
+    args = ttrain.parser().parse_args(
+        ["--algo", "td3", "--device", "cpu", "--n-envs", "4",
+         "--buffer-size", "16"])
+    trainer = ttrain.build(args, lidar_backend="pallas", strict_quirks=True)
+    assert trainer.env.cfg.lidar_backend == "pallas"
+    assert trainer.env.cfg.strict_quirks
+    args = ttrain.parser().parse_args(
+        ["--algo", "td3", "--device", "cpu", "--n-envs", "4",
+         "--buffer-size", "16", "--risk-backend", "pallas"])
+    with pytest.raises(ValueError, match="strict_quirks"):
+        ttrain.build(args, strict_quirks=True)

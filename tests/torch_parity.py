@@ -217,3 +217,27 @@ def state_to_jax(agent, tstate, jtemplate):
         else:
             kw[f.name] = jnp.asarray(arrays[f.name], v.dtype)
     return jtemplate.replace(**kw)
+
+
+def jax_noise_draws(cfg, states):
+    """The per-step noise draws of the JAX step from ``states`` (before
+    the step), as the port's ``step_batch(noise=...)`` takes them:
+    ``"act"`` (the normal times ``actuation_noise``) and ``"dt"`` from
+    ``world_step``'s ``k_act``/``k_dt`` keys, ``"lidar"`` from
+    ``fold_in(key after the step, 7)``. Jitted, as the step computes
+    them (XLA folds the normal's sqrt(2) into the noise scale)."""
+    def one(key):
+        new_key, _, k_act, k_dt = jax.random.split(key, 4)
+        out = {}
+        if cfg.actuation_noise > 0.0:
+            out["act"] = jax.random.normal(k_act, (2,)) * cfg.actuation_noise
+        if cfg.dt_jitter > 0.0:
+            out["dt"] = jax.random.uniform(k_dt, (), minval=-cfg.dt_jitter,
+                                           maxval=cfg.dt_jitter)
+        if cfg.lidar_noise > 0.0:
+            out["lidar"] = jax.random.normal(
+                jax.random.fold_in(new_key, 7), (cfg.n_scans,)) \
+                * cfg.lidar_noise
+        return out
+    return {k: to_torch(v) for k, v in jax.jit(jax.vmap(one))(
+        states.key).items()}
