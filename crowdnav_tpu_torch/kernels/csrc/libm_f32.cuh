@@ -66,30 +66,37 @@ LIBMF_FN uint32_t libmf_abstop12(float x) {
   return (libmf_asuint(x) >> 20) & 0x7ff;
 }
 
-// sinf_poly of sincosf.h; `neg` selects the second table, whose cosine
-// coefficients are negated
-LIBMF_FN float libmf_sincos_poly(double x, double x2, int neg, int n) {
+// the two halves of sinf_poly of sincosf.h: the sine polynomial of x,
+// and the cosine polynomial of x^2, `neg` selecting the second table,
+// whose coefficients are negated
+LIBMF_FN float libmf_sin_poly(double x, double x2) {
+  const double s1 = -0x1.555545995a603p-3;
+  const double s2 = 0x1.1107605230bc4p-7;
+  const double s3 = -0x1.994eb3774cf24p-13;
+  double x3 = x * x2;
+  double p1 = libmf_madd(x2, s3, s2);
+  double x7 = x3 * x2;
+  double s = libmf_madd(x3, s1, x);
+  return (float)libmf_madd(x7, p1, s);
+}
+
+LIBMF_FN float libmf_cos_poly(double x2, int neg) {
   const double c0 = neg ? -0x1p0 : 0x1p0;
   const double c1 = neg ? 0x1.ffffffd0c621cp-2 : -0x1.ffffffd0c621cp-2;
   const double c2 = neg ? -0x1.55553e1068f19p-5 : 0x1.55553e1068f19p-5;
   const double c3 = neg ? 0x1.6c087e89a359dp-10 : -0x1.6c087e89a359dp-10;
   const double c4 = neg ? -0x1.99343027bf8c3p-16 : 0x1.99343027bf8c3p-16;
-  const double s1 = -0x1.555545995a603p-3;
-  const double s2 = 0x1.1107605230bc4p-7;
-  const double s3 = -0x1.994eb3774cf24p-13;
-  if ((n & 1) == 0) {
-    double x3 = x * x2;
-    double p1 = libmf_madd(x2, s3, s2);
-    double x7 = x3 * x2;
-    double s = libmf_madd(x3, s1, x);
-    return (float)libmf_madd(x7, p1, s);
-  }
   double x4 = x2 * x2;
   double q2 = libmf_madd(x2, c4, c3);
   double q1 = libmf_madd(x2, c1, c0);
   double x6 = x4 * x2;
   double c = libmf_madd(x4, c2, q1);
   return (float)libmf_madd(x6, q2, c);
+}
+
+// sinf_poly of sincosf.h: the sine polynomial for even n, else the cosine
+LIBMF_FN float libmf_sincos_poly(double x, double x2, int neg, int n) {
+  return (n & 1) == 0 ? libmf_sin_poly(x, x2) : libmf_cos_poly(x2, neg);
 }
 
 // reduce_fast of sincosf.h (the library's build without round-to-int
@@ -157,6 +164,37 @@ LIBMF_FN float libmf_sincosf(float y, int cosine) {
                              n ^ cosine);
   }
   return (y - y) / (y - y);  // inf or nan
+}
+
+// sinf(y) and cosf(y) from one argument reduction: the values of
+// libmf_sinf and libmf_cosf, operation for operation. Both polynomials
+// are evaluated for every argument and the quadrant's parity picks which
+// is the sine, so that the lanes of a warp do not diverge on it.
+LIBMF_FN void libmf_sinf_cosf(float y, float *sin_out, float *cos_out) {
+  uint32_t top = libmf_abstop12(y);
+  if (top < 0x3f4) {  // |y| < abstop12(pi/4)
+    if (top < 0x398) {  // |y| < 2^-12
+      *sin_out = y;
+      *cos_out = 1.0f;
+      return;
+    }
+    double x = y;
+    *sin_out = libmf_sin_poly(x, x * x);
+    *cos_out = libmf_cos_poly(x * x, 0);
+    return;
+  }
+  if (top < 0x42f) {  // |y| < 120
+    int n;
+    double x = libmf_reduce_fast(y, &n);
+    double xs = x * libmf_quadrant_sign(n), x2 = x * x;
+    float even = libmf_sin_poly(xs, x2);
+    float odd = libmf_cos_poly(x2, (n & 2) != 0);
+    *sin_out = (n & 1) == 0 ? even : odd;
+    *cos_out = (n & 1) == 0 ? odd : even;
+    return;
+  }
+  *sin_out = libmf_sincosf(y, 0);
+  *cos_out = libmf_sincosf(y, 1);
 }
 
 LIBMF_FN float libmf_sinf(float y) { return libmf_sincosf(y, 0); }

@@ -23,6 +23,9 @@ H100_F64_FLOPS = 34e12   # float64 outside the tensor cores
 # in two halves (about 30)
 LIBM_SINCOS_F64_OPS = 13
 LIBM_ATAN2_F32_OPS = 30
+# sinf and cosf of one argument together (``libmf_sinf_cosf``): one
+# reduction and argument conversion (4) for both polynomials
+LIBM_SINCOS_PAIR_F64_OPS = 2 * LIBM_SINCOS_F64_OPS - 4
 
 # raycast operations: per beam, the direction (two products, two
 # multiply-adds: 6), the walls (two differences, two divisions, the
@@ -62,7 +65,7 @@ def raycast_pallas_work(n: int, b: int, p: int, hits: int):
     nbytes = 4 * (2 * n + n + 2 * n * p + n * b)
     ops = (n * b * (RAYCAST_OPS_PER_BEAM - 6 + 2 + RAYCAST_OPS_PER_PAIR * p)
            + RAYCAST_OPS_PER_HIT * hits + RAYCAST_OPS_PER_ENV_PED * n * p)
-    return nbytes, ops, n * b * 2 * LIBM_SINCOS_F64_OPS
+    return nbytes, ops, n * b * LIBM_SINCOS_PAIR_F64_OPS
 
 
 def mixed_bound_ms(nbytes: float, ops32: float, ops64: float):

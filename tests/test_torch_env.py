@@ -162,3 +162,24 @@ def test_step_batch_matches_jax_under_backends_and_knobs(overrides):
         assert_env_state_equal(got.state, out.state, msg)
         js = out.state
     assert resets > 0, "the rollout never exercised the auto-reset"
+
+
+def test_reset_with_lidar_noise_matches_jax():
+    """``CrowdEnv.reset`` under ``lidar_noise``: the reset observation's
+    scans carry the noise drawn from the fresh state's key (JAX's draws
+    passed in), bit for bit."""
+    from test_torch_simple_env import jax_reset_lidar_noise
+    kw = dict(jitter=1.0, max_steps=8, lidar_noise=0.005,
+              risk_backend="pallas")
+    jc = make_config("crowd_dense", "crowd", **kw)
+    jenv = CrowdEnv(jc)
+    tenv = _port_env(jenv, tcfg.make_config("crowd_dense", "crowd", **kw))
+    keys = jax.random.split(jax.random.PRNGKey(13), N)
+    js, jobs = jax.jit(jax.vmap(jenv.reset))(keys)
+    ts, tobs = tenv.reset(N, draws=jax_reset_draws(jc, keys),
+                          lidar_noise=jax_reset_lidar_noise(jc, keys))
+    np.testing.assert_array_equal(tobs.numpy(), np.asarray(jobs))
+    assert_env_state_equal(ts, js)
+    clean = make_config("crowd_dense", "crowd", jitter=1.0, max_steps=8)
+    _, jobs0 = jax.jit(jax.vmap(CrowdEnv(clean).reset))(keys)
+    assert (np.asarray(jobs0) != np.asarray(jobs)).any()

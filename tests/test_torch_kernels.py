@@ -213,7 +213,7 @@ def test_raycast_pallas_work_is_the_plain_tensors(p):
     """The Pallas form reads the yaw instead of its trig and the beam
     tables: its byte count is the Pallas plain version's tensors; per beam
     it does the angle's multiply-add in float32 and the C library's cos
-    and sin in float64."""
+    and sin (one shared reduction) in float64."""
     args = _raycast_args(7, p)
     pos, peds = args[0], args[5]
     yaw = torch.from_numpy(np.random.default_rng(1).uniform(
@@ -223,7 +223,7 @@ def test_raycast_pallas_work_is_the_plain_tensors(p):
     nbytes, ops32, ops64 = roofline.raycast_pallas_work(7, B, p, hits)
     assert nbytes == sum(t.nbytes for t in (pos, yaw, peds, out))
     assert ops32 == 7 * B * (11 + 5 * p) + 3 * hits + 5 * 7 * p
-    assert ops64 == 7 * B * 2 * roofline.LIBM_SINCOS_F64_OPS
+    assert ops64 == 7 * B * roofline.LIBM_SINCOS_PAIR_F64_OPS
     ms, by = roofline.mixed_bound_ms(nbytes, ops32, ops64)
     assert ms >= roofline.bound_ms(nbytes, ops32)[0]
     assert by in ("bytes", "operations")

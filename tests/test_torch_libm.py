@@ -128,3 +128,64 @@ def test_numerics_trig_is_the_c_library_on_cpu():
     assert torch.equal(nm.sin(x), torch.tensor([lib.sinf(v) for v in xs]))
     assert torch.equal(nm.atan2(y, x), torch.tensor(
         [lib.atan2f(a, b) for a, b in zip(ys, xs)]))
+
+
+PAIR_HARNESS = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include HEADER_PATH
+
+static uint64_t mix(uint64_t z) {
+  z += 0x9e3779b97f4a7c15ULL;
+  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
+  z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
+  return z ^ (z >> 31);
+}
+
+static long long check(float x, long long *bad) {
+  float s, c;
+  libmf_sinf_cosf(x, &s, &c);
+  float s1 = libmf_sinf(x), c1 = libmf_cosf(x);
+  int nan_s = isnan(s) && isnan(s1), nan_c = isnan(c) && isnan(c1);
+  *bad += (!nan_s && libmf_asuint(s) != libmf_asuint(s1))
+          + (!nan_c && libmf_asuint(c) != libmf_asuint(c1))
+          + (!nan_s && libmf_asuint(s) != libmf_asuint(sinf(x)))
+          + (!nan_c && libmf_asuint(c) != libmf_asuint(cosf(x)));
+  return 1;
+}
+
+int main(void) {
+  long long bad = 0, n = 0;
+  /* every float32 of magnitude up to 10 (the raycast's beam angles lie
+     in (-9.5, 3.2]), every 16th below 2^-12, both signs */
+  for (uint32_t u = 0; u <= 0x41200000u; u += (u < 0x39800000u ? 16 : 1))
+    for (int s = 0; s < 2; s++)
+      n += check(libmf_asfloat(u | (s ? 0x80000000u : 0u)), &bad);
+  for (uint64_t i = 0; i < (1u << 21); i++)   /* every exponent */
+    n += check(libmf_asfloat((uint32_t)mix(i)), &bad);
+  printf("%lld %lld\n", n, bad);
+  return 0;
+}
+"""
+
+
+def test_sin_cos_pair_equals_the_two_calls_and_the_c_library(tmp_path):
+    """``libmf_sinf_cosf`` (one argument reduction for both, as the
+    raycast's Pallas form calls it) gives ``libmf_sinf`` and
+    ``libmf_cosf`` bit for bit, and the host's C library's: on every
+    float32 of magnitude up to 10 and on random bit patterns."""
+    cc = shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        pytest.skip("needs a host C compiler to build libm_f32.cuh")
+    src, exe = tmp_path / "pair.c", tmp_path / "pair"
+    src.write_text(PAIR_HARNESS)
+    fma = "1" if _host_has_fma() else "0"
+    subprocess.run([cc, "-O2", "-std=c11", "-ffp-contract=off",
+                    f"-DLIBMF_FMA={fma}", f'-DHEADER_PATH="{HEADER}"',
+                    "-o", str(exe), str(src), "-lm"], check=True,
+                   capture_output=True, timeout=120)
+    n, bad = map(int, subprocess.run(
+        [str(exe)], check=True, capture_output=True, text=True,
+        timeout=600).stdout.split())
+    assert n > 100_000_000
+    assert bad == 0, f"{bad} results differ"
