@@ -53,7 +53,25 @@ Phases, each printing one JSON line:
 14. ``evaluate_agents``: greedy evaluation of the three committed policies
    (``crowdnav_tpu_torch/assets/``) through ``drivers/evaluate``, 256 envs
    x 500 steps, each Wilson 95% interval held to overlap its JAX record's;
-15. ``kernels``: one line with each kernel form's times, bounds and
+15. ``sharded``: the ``bench.py`` cell's training as 2 gloo ranks on the
+   one card (``parallel/mesh.ShardedTrainer`` through ``drivers/train``
+   under ``--multihost``; 8,192 envs and batch 2,048 a rank, each rank a
+   process): a warm-up and a timed chunk, the rate, the step's split and
+   the all-reduce's time, each rank's launches, each rank's replay ring
+   the 1-rank ring's block count; the ranks' agent states
+   bit-equal, and their last update held to the 1-rank update of the same
+   global batch within the derived bound. Two ranks share one card: a
+   check of the path, not a scaling figure;
+16. ``multihost_nccl``: ``drivers/train --multihost --num-processes 1`` on
+   NCCL with ``--profile-dir``: 3 chunks at 1,024 envs, and what the
+   profiler's trace of chunk 2 saw on the card;
+17. ``deploy``: ``drivers/deploy_realworld`` in loopback, 50 ticks on the
+   card and on the CPU: the raycast kernel and the tracker kernel at
+   K = 1 once a tick, every observation bit-equal to the CPU's, every
+   action within the actor's derived bound, the tick's latency;
+18. ``trajectory``: ``viz.trace_rollout`` of one env under the goal seeker
+   and its ``TrajectoryWriter`` CSV, byte-equal to the CPU's;
+19. ``kernels``: one line with each kernel form's times, bounds and
    launches on every path.
 
 Before them, ``step_parity`` holds the env step on the card against the
@@ -73,7 +91,9 @@ path) and 16,384 envs (the training batch of ``bench.py``). ``ms`` and
 that runs the form (``launches_path``), ``launches_<path>`` every
 training run, ``launches_evaluate`` the TD3 evaluation,
 ``launches_train_<algo>`` and ``launches_evaluate_<algo>`` the other
-learners' runs.
+learners' runs, ``launches_sharded_rank<r>``, ``launches_multihost_nccl``,
+``launches_deploy`` and ``launches_trajectory`` this slice's paths (the
+last three with their resets' launches).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; without a CUDA device it fails at once.
@@ -1372,6 +1392,396 @@ def phase_evaluate_agents(torch):
     return launches
 
 
+# ---- the sharded learner, the multi-host driver, deployment and the
+# trajectory audit ----
+
+SHARDED_RANKS = 2
+# the bench cell (train_pallas) as 2 gloo ranks on one card: 8,192 envs a
+# rank, global batch 4,096 (2,048 a rank)
+SHARDED_FLAGS = TRAIN_FULL + ["--risk-backend", "pallas", "--multihost"]
+SHARDED_TIMED_CHUNKS = 1     # after a warm-up chunk
+SHARDED_PROBE_STEPS = 2      # steps with each all-reduce timed
+SHARDED_TIMEOUT_S = 600
+
+
+def _free_port() -> str:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return str(sock.getsockname()[1])
+
+
+def sharded_rank(rank, port, out):
+    """One rank of the ``sharded`` phase, in a process of its own: the
+    bench cell's training through ``drivers/train.build`` under
+    ``--multihost`` on gloo, this rank's 8,192 envs on ``cuda:0``; a
+    warm-up and a timed chunk (launches, the step's split, the rate),
+    probe steps with each all-reduce timed, then one update of this rank's
+    sample from the final state, written to ``out`` with the final agent
+    state."""
+    import torch
+    import torch.distributed as dist
+
+    from crowdnav_tpu_torch.drivers import train as dtrain
+    from crowdnav_tpu_torch.parallel import distributed
+    from crowdnav_tpu_torch.utils.tree import to_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(rank)
+    dev = distributed.init_multihost(f"localhost:{port}", SHARDED_RANKS,
+                                     rank, backend="gloo", device="cuda:0")
+    try:
+        args = dtrain.parser().parse_args(SHARDED_FLAGS)
+        trainer = dtrain.build(args, dev)
+        tc, cpu = trainer.tcfg, torch.device("cpu")
+        t0 = time.perf_counter()
+        state = trainer.init(args.seed)
+        state = trainer.rollout_chunk(state)
+        _, state = trainer.drain_stats(state)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        dist.barrier()
+        _reset_launches()
+        trainer.spans = []
+        t0 = time.perf_counter()
+        for _ in range(SHARDED_TIMED_CHUNKS):
+            state = trainer.rollout_chunk(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        split = trainer.span_ms()
+        trainer.spans = None
+        summary, state = trainer.drain_stats(state)
+        reduce_ms, reduce = [], trainer.update_kw["grad_reduce"]
+
+        def timed_reduce(t):
+            torch.cuda.current_stream(t.device).synchronize()
+            t0 = time.perf_counter()
+            out = reduce(t)
+            torch.cuda.current_stream(t.device).synchronize()
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        trainer.update_kw["grad_reduce"] = timed_reduce
+        for _ in range(SHARDED_PROBE_STEPS):
+            state = trainer._train_step(state)
+        trainer.update_kw["grad_reduce"] = reduce
+        agent, s_in = trainer.agent, state.agent_state
+        batch = trainer.buffer.sample(state.replay, trainer.batch_size,
+                                      state.gen)
+        noise = torch.randn((trainer.batch_size, 2), generator=state.gen,
+                            device=dev)
+        new, metrics = agent.update(s_in, batch, smoothing_noise=noise,
+                                    grad_reduce=trainer.mesh.mean)
+        torch.save({
+            "rank": rank, "envs": tc.n_envs, "rows": trainer.rows,
+            "batch_size": trainer.batch_size, "warmup_chunk_s": warm_s,
+            "timed_steps": SHARDED_TIMED_CHUNKS * tc.rollout_chunk,
+            "timed_wall_s": wall, "device_ms_per_step": split,
+            "launches": launches, "summary": summary,
+            "replay_size": int(state.replay.size),
+            "replay_blocks": trainer.buffer.n_blocks,
+            "replay_capacity": trainer.buffer.capacity,
+            "one_rank_blocks": -(-trainer.agent.cfg.buffer_size
+                                 // trainer.n_global),
+            "reduce_ms": reduce_ms,
+            "updates_probed": SHARDED_PROBE_STEPS * tc.updates_per_step,
+            "agent_cfg": dataclasses.asdict(agent.cfg),
+            "final": to_device(state.agent_state, cpu),
+            "state_in": to_device(s_in, cpu), "batch": to_device(batch, cpu),
+            "noise": noise.cpu(), "new": to_device(new, cpu),
+            "metrics": to_device(metrics, cpu),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}, out)
+    finally:
+        distributed.shutdown()
+
+
+def _run_ranks(argvs, timeout):
+    """One process per argv, one time limit for all, every one of them
+    stopped when it is reached; their exit codes."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    procs = [subprocess.Popen(a, cwd=ROOT, env=env) for a in argvs]
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs]
+
+
+def phase_sharded(torch, dev):
+    """The sharded learner (``parallel/mesh.ShardedTrainer``) at the bench
+    cell's full width as 2 gloo ranks on this one card, each its own
+    process (NCCL takes one rank a card): the rate, the step's split, the
+    all-reduce's time, each rank's kernel launches; then the two ranks'
+    agent states bit-equal after the run, and their last update (each on
+    its own half of the global batch, the gradients summed over the ranks
+    and halved) held to the 1-rank update of the same global batch and
+    noise on the card within ``error_bounds.check_update``. Two ranks on
+    one card share it: a check of the path, not a scaling figure."""
+    from crowdnav_tpu_torch.agents.replay import Transition
+    from crowdnav_tpu_torch.agents.td3 import TD3, TD3Config
+    from crowdnav_tpu_torch.utils.error_bounds import check_update
+    from crowdnav_tpu_torch.utils.tree import to_device, tree_leaves
+    torch.cuda.empty_cache()
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt")
+                for r in range(SHARDED_RANKS)]
+        t0 = time.perf_counter()
+        codes = _run_ranks([[
+            sys.executable, "-c",
+            "import sys, chip_smoke; chip_smoke.sharded_rank(*sys.argv[1:])",
+            str(r), port, outs[r]] for r in range(SHARDED_RANKS)],
+            SHARDED_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if any(codes):
+            raise AssertionError(f"sharded ranks exited with {codes}")
+        res = [torch.load(o, weights_only=False) for o in outs]
+    cpu = torch.device("cpu")
+    for (k, a), (_, b) in zip(tree_leaves(res[0]["final"]),
+                              tree_leaves(res[1]["final"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"the ranks' agent states differ: {k}")
+    for (k, a), (_, b) in zip(tree_leaves(res[0]["new"]),
+                              tree_leaves(res[1]["new"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"the ranks' last updates differ: {k}")
+    agent = TD3(TD3Config(**res[0]["agent_cfg"]), 398, device=dev)
+    s_in = res[0]["state_in"]
+    batch = Transition(*(torch.cat([x, y]) for x, y in
+                         zip(res[0]["batch"], res[1]["batch"])))
+    noise = torch.cat([res[0]["noise"], res[1]["noise"]])
+    new_1, m_1 = agent.update(to_device(s_in, dev), to_device(batch, dev),
+                              smoothing_noise=noise.to(dev))
+    shares = check_update(agent, s_in, batch, noise, res[0]["new"],
+                          to_device(new_1, cpu), to_device(m_1, cpu))
+    ranks = []
+    for r in res:
+        steps = r["timed_steps"]
+        for name in ("raycast", "track_cp_topk_pallas"):
+            if r["launches"][name] != steps:
+                raise AssertionError(f"rank {r['rank']}: {name} launched "
+                                     f"{r['launches'][name]} times in "
+                                     f"{steps} steps")
+        if r["replay_blocks"] != r["one_rank_blocks"]:
+            raise AssertionError(f"rank {r['rank']}: a ring of "
+                                 f"{r['replay_blocks']} blocks, the 1-rank "
+                                 f"ring has {r['one_rank_blocks']}")
+        ms = r["reduce_ms"]
+        ranks.append({
+            "rank": r["rank"], "envs": r["envs"], "rows": [r["rows"].start,
+                                                          r["rows"].stop],
+            "batch": r["batch_size"], "warmup_chunk_s": r["warmup_chunk_s"],
+            "timed_steps": steps, "timed_wall_s": r["timed_wall_s"],
+            "wall_ms_per_step": r["timed_wall_s"] * 1e3 / steps,
+            "device_ms_per_step": r["device_ms_per_step"],
+            "allreduce_calls": len(ms),
+            "allreduce_ms_per_call": float(np.mean(ms)),
+            "allreduce_ms_per_update": float(np.sum(ms))
+            / r["updates_probed"],
+            "launches": r["launches"], "replay_size": r["replay_size"],
+            "replay_blocks": r["replay_blocks"],
+            "replay_capacity": r["replay_capacity"],
+            "peak_memory_bytes": r["peak_memory_bytes"]})
+    n_all = sum(r["envs"] for r in res)
+    slowest = max(r["timed_wall_s"] for r in res)
+    out = {"ranks": ranks, "backend": "gloo", "devices": "cuda:0 (both)",
+           "global_envs": n_all,
+           "env_steps_per_s": n_all * res[0]["timed_steps"] / slowest,
+           "episodes": res[0]["summary"]["episodes"],
+           "summaries_equal": res[0]["summary"] == res[1]["summary"],
+           "update_vs_one_rank": {"global_batch": int(noise.shape[0]),
+                                  "max_bound_share": shares},
+           "phase_wall_s": wall,
+           "note": "two ranks share one card: a check of the sharded "
+                   "path, not a scaling figure"}
+    if not out["summaries_equal"]:
+        raise AssertionError("the ranks drained different statistics")
+    emit({"phase": "sharded", **out})
+    return res
+
+
+NCCL_FLAGS = ["--algo", "td3", "--world", "crowd_dense", "--behavior",
+              "crowd", "--jitter", "1.0", "--replay-obs-dtype", "bfloat16",
+              "--risk-backend", "pallas", "--n-envs", "1024", "--chunk", "16",
+              "--env-steps", str(1024 * 16 * 3), "--updates-per-step", "2",
+              "--batch-size", "1024", "--learn-start", "1024",
+              "--reset-bank", "256", "--buffer-size", "65536",
+              "--ckpt-every-chunks", "0", "--device", "cuda"]
+NCCL_STEPS = 16 * 3
+
+
+def phase_multihost_nccl(torch):
+    """``drivers/train --multihost --num-processes 1`` on NCCL (the
+    backend ``init_multihost`` picks for a card), the sharded trainer at
+    one rank, 3 chunks of 16 steps at 1,024 envs with ``--profile-dir``:
+    the driver's events, the kernels' launches, and what the profiler's
+    trace of chunk 2 saw on the card."""
+    import contextlib
+    import io
+
+    from crowdnav_tpu_torch.drivers import train as dtrain
+    with tempfile.TemporaryDirectory() as out:
+        prof = os.path.join(out, "prof")
+        argv = NCCL_FLAGS + [
+            "--outdir", out, "--profile-dir", prof, "--multihost",
+            "--coordinator", f"localhost:{_free_port()}",
+            "--num-processes", "1", "--process-id", "0"]
+        buf = io.StringIO()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            dtrain.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        events = [json.loads(x) for x in buf.getvalue().splitlines()
+                  if x.startswith("{")]
+        with open(os.path.join(prof, "chunk2_rank0.json")) as fp:
+            trace = json.load(fp)["traceEvents"]
+        files = sorted(os.listdir(out))
+    kernels = [e for e in trace if e.get("cat") == "kernel"]
+    names = [e.get("name", "") for e in kernels]
+    summary = next(e for e in events if "process_count" in e)
+    chunks = [e for e in events if "chunk" in e]
+    out = {"process_summary": summary, "chunks": len(chunks),
+           "sps": [c["sps"] for c in chunks],
+           "critic_loss": chunks[-1].get("critic_loss"),
+           "wall_s": wall, "launches": launches, "files": files,
+           "trace_events": len(trace), "trace_device_kernels": len(kernels),
+           "trace_device_kernel_us": sum(e.get("dur", 0) for e in kernels),
+           "trace_raycast_kernels": sum("raycast" in n for n in names),
+           "trace_track_kernels": sum("track_cp_topk" in n for n in names)}
+    emit({"phase": "multihost_nccl", **out})
+    if summary.get("backend") != "nccl" or len(chunks) != 3:
+        raise AssertionError(f"multihost_nccl: {summary}, {len(chunks)} "
+                             f"chunks")
+    for name in ("raycast", "track_cp_topk_pallas"):
+        # one a step, and one for each of the three resets of the run
+        # (the env's template, the initial batch, the reset bank)
+        if launches[name] != NCCL_STEPS + 3:
+            raise AssertionError(f"multihost_nccl: {name} launched "
+                                 f"{launches[name]} times")
+    if not math.isfinite(out["critic_loss"]):
+        raise AssertionError(f"multihost_nccl: {out['critic_loss']}")
+    return out
+
+
+DEPLOY_TICKS = 50
+
+
+def phase_deploy(torch, dev):
+    """``drivers/deploy_realworld.run_deployment`` in loopback, 50 ticks
+    on the card and 50 on the CPU with one actor (random weights from a
+    seed: no trained 370-dim actor is committed): the source's raycast
+    kernel and the tracker kernel at K = 1 once a tick, every observation
+    bit-equal to the CPU's, every action of both within the actor's
+    derived float32 bound, the tick's latency."""
+    from crowdnav_tpu_torch.agents.td3 import TD3, TD3Config
+    from crowdnav_tpu_torch.drivers import deploy_realworld as deploy
+    from crowdnav_tpu_torch.models.networks import flatten
+    from crowdnav_tpu_torch.utils.error_bounds import (actor_action_bound,
+                                                       within)
+    agent = TD3(TD3Config(), 370, device="cpu").init(3)
+    sd = {k: v.clone() for k, v in agent.actor.state_dict().items()}
+    flat = flatten(agent.actor)
+    runs, launches = {}, None
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        ticks, lat = [], []
+        if name == "card":
+            _reset_launches()
+        hist = deploy.run_deployment(
+            actor=sd, n_ticks=DEPLOY_TICKS, tick_period=0.0, device=device,
+            latencies=lat, on_tick=lambda st, obs, a: ticks.append(
+                (obs.cpu(), a.cpu())))
+        if name == "card":
+            launches = _read_launches()
+        runs[name] = (hist, ticks, lat)
+    (h_c, t_c, l_c), (h_g, t_g, l_g) = runs["cpu"], runs["card"]
+    if not len(t_c) == len(t_g) == DEPLOY_TICKS:
+        raise AssertionError(f"deploy: {len(t_c)} / {len(t_g)} ticks")
+    shares = []
+    for i, ((o_c, a_c), (o_g, a_g)) in enumerate(zip(t_c, t_g)):
+        if _n_differ(torch, o_g, o_c):
+            raise AssertionError(f"deploy tick {i}: the card's observation "
+                                 f"differs from the CPU's")
+        bnd = actor_action_bound(agent, flat, o_c.numpy())
+        shares += [within(f"deploy tick {i} card", a_g.numpy(), bnd),
+                   within(f"deploy tick {i} cpu", a_c.numpy(), bnd)]
+    for name in ("raycast", "track_cp_topk"):
+        # one a tick, and one for each of the env's template and the
+        # loop's reset
+        if launches[name] != DEPLOY_TICKS + 2:
+            raise AssertionError(f"deploy: {name} launched "
+                                 f"{launches[name]} times in "
+                                 f"{DEPLOY_TICKS} ticks and 2 resets")
+    lat_ms = np.array(l_g) * 1e3
+    out = {"ticks": DEPLOY_TICKS, "obs_dim": int(t_g[0][0].shape[1]),
+           "observations_bit_equal": True,
+           "max_action_bound_share": max(shares),
+           "final_dtg": h_g[-1][1], "launches": launches,
+           "tick_ms_median": float(np.median(lat_ms)),
+           "tick_ms_p90": float(np.percentile(lat_ms, 90)),
+           "tick_ms_first": float(lat_ms[0]),
+           "tick_ms_median_cpu": float(np.median(l_c) * 1e3)}
+    emit({"phase": "deploy", **out})
+    return out
+
+
+TRAJ_STEPS = 200
+
+
+def phase_trajectory(torch, dev):
+    """``viz.trace_rollout`` of one ``crowd_dense``/``crossing`` env (no
+    draws) under the goal seeker, 200 steps on the card and on the CPU,
+    each written by ``viz.TrajectoryWriter``: the two CSVs byte-equal, the
+    kernels once a step on the card."""
+    from crowdnav_tpu_torch import baselines, viz
+    from crowdnav_tpu_torch.envs.config import make_config
+    from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
+    cfg = make_config("crowd_dense", "crossing", max_steps=TRAJ_STEPS // 2)
+    texts, launches, wall, ended = {}, None, None, None
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        env = CrowdEnv(cfg, device=device)
+        if name == "card":
+            _reset_launches()
+            t0 = time.perf_counter()
+        _, _, traj, _, dones = viz.trace_rollout(env, baselines.goal_seeker,
+                                                 0, TRAJ_STEPS)
+        if name == "card":
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read_launches()
+            ended = int(dones.sum())
+        with tempfile.TemporaryDirectory() as out:
+            w = viz.TrajectoryWriter(out, "goal_seeker_trajectory")
+            w.record_rollout(traj)
+            with open(w.path) as fp:
+                texts[name] = fp.read()
+    rows = texts["card"].splitlines()
+    out = {"steps": TRAJ_STEPS, "rows": len(rows), "episodes_ended": ended,
+           "csv_bytes": len(texts["card"]),
+           "csv_equal_to_cpu": texts["card"] == texts["cpu"],
+           "first_row": rows[0], "last_row": rows[-1], "wall_s": wall,
+           "launches": launches}
+    emit({"phase": "trajectory", **out})
+    if not out["csv_equal_to_cpu"] or len(rows) != TRAJ_STEPS:
+        raise AssertionError("trajectory: the card's CSV differs from the "
+                             "CPU's")
+    for name in ("raycast", "track_cp_topk"):
+        # one a step, and one for the rollout's reset
+        if launches[name] != TRAJ_STEPS + 1:
+            raise AssertionError(f"trajectory: {name} launched "
+                                 f"{launches[name]} times")
+    return out
+
+
 PARITY_ENVS = 1024
 PARITY_STEPS = 40
 SIMPLE_PARITY_STEPS = 50
@@ -1723,10 +2133,23 @@ def main():
     phase_tabular(torch)
     train_agents = phase_train_agents(torch, dev)
     eval_agents = phase_evaluate_agents(torch)
+    sharded = phase_sharded(torch, dev)
+    nccl = phase_multihost_nccl(torch)
+    deploy = phase_deploy(torch, dev)
+    trajectory = phase_trajectory(torch, dev)
     paths = {"train_pallas": {"launches": train_pallas["launches"],
                               "steps": train_pallas["timed_steps"]},
              "train": {"launches": train["launches"],
                        "steps": train["timed_steps"]}}
+    for r in sharded:
+        paths[f"sharded_rank{r['rank']}"] = {"launches": r["launches"],
+                                             "steps": r["timed_steps"]}
+    paths["multihost_nccl"] = {"launches": nccl["launches"],
+                               "steps": NCCL_STEPS}
+    paths["deploy"] = {"launches": deploy["launches"],
+                       "steps": DEPLOY_TICKS}
+    paths["trajectory"] = {"launches": trajectory["launches"],
+                           "steps": TRAJ_STEPS}
     for name, counts in forms.items():
         paths[name] = {"launches": counts, "steps": FORM_CHUNK}
     emit({"kernels": kernel_line(smi, stats, paths, evaluate, train_agents,

@@ -18,7 +18,8 @@ import torch
 
 from crowdnav_tpu_torch.agents.optim import Adam, AdamState
 from crowdnav_tpu_torch.agents.replay import Transition
-from crowdnav_tpu_torch.agents.td3 import eps_spectrum, value_and_grad
+from crowdnav_tpu_torch.agents.td3 import (reduce_metrics, spectrum_rows,
+                                           value_and_grad)
 from crowdnav_tpu_torch.models.networks import (DeterministicActor, QCritic,
                                                 actor_apply, actor_heads,
                                                 flatten, layout, load_flat,
@@ -90,6 +91,7 @@ class DDPG:
         self.lo = torch.tensor([0.0, -cfg.max_ang_vel], device=self.device)
         self.hi = torch.tensor([cfg.max_lin_vel, cfg.max_ang_vel],
                                device=self.device)
+        self.env_rows = None        # as TD3's: a sharded batch's rows
 
     # ---- parameters ----
     def init(self, seed: int = 0):
@@ -168,8 +170,8 @@ class DDPG:
             nm.fma(heads[1], nm.f32(cfg.max_ang_vel), ou[:, 1:])], dim=-1)
         if cfg.explore_uniform_eps > 0.0:
             if cfg.explore_eps_spectrum:
-                eps = eps_spectrum(cfg, action.shape[0],
-                                   device=action.device)[:, None]
+                eps = spectrum_rows(cfg, self.env_rows, action.shape[0],
+                                    action.device)
             else:
                 eps = nm.f32(cfg.explore_uniform_eps)
             action = torch.where(pick < eps, unif, action)
@@ -221,17 +223,22 @@ class DDPG:
 
     @torch.no_grad()
     def update(self, state: DDPGState, batch: Transition,
-               gen: torch.Generator | None = None):
+               gen: torch.Generator | None = None, grad_reduce=None):
         """One DDPG step: the critic's TD step, the actor's step under the
-        updated critic, soft target updates; ``(new state, metrics)``."""
+        updated critic, soft target updates; ``(new state, metrics)``.
+        ``grad_reduce``: the data-parallel learner, as ``TD3.update``'s."""
         cfg = self.cfg
         obs = batch.obs.float()
         y = self.td_target(state, batch)
         c_loss, c_grad = self.critic_grad(state.critic_params, obs,
                                           batch.action, y)
+        if grad_reduce is not None:
+            c_grad = grad_reduce(c_grad)
         critic, critic_opt = self.critic_tx.update(
             c_grad, state.critic_opt, state.critic_params)
         a_loss, a_grad = self.actor_grad(state.actor_params, critic, obs)
+        if grad_reduce is not None:
+            a_grad = grad_reduce(a_grad)
         actor, actor_opt = self.actor_tx.update(a_grad, state.actor_opt,
                                                 state.actor_params)
         keep, tau = nm.f32(1.0 - cfg.tau), nm.f32(cfg.tau)
@@ -241,4 +248,5 @@ class DDPG:
             critic_params=critic,
             critic_target=state.critic_target * keep + critic * tau,
             actor_opt=actor_opt, critic_opt=critic_opt)
-        return new, {"critic_loss": c_loss, "actor_loss": a_loss}
+        return new, reduce_metrics(grad_reduce, {"critic_loss": c_loss,
+                                                 "actor_loss": a_loss})

@@ -19,7 +19,7 @@ import torch
 
 from crowdnav_tpu_torch.agents.optim import RMSprop, RMSpropState
 from crowdnav_tpu_torch.agents.replay import Transition
-from crowdnav_tpu_torch.agents.td3 import value_and_grad
+from crowdnav_tpu_torch.agents.td3 import reduce_metrics, value_and_grad
 from crowdnav_tpu_torch.models.networks import (QNetwork, flatten, layout,
                                                 load_flat, mlp_apply,
                                                 unflatten)
@@ -168,11 +168,14 @@ class DQN:
 
     @torch.no_grad()
     def update(self, state: DQNState, batch: Transition,
-               gen: torch.Generator | None = None):
-        """One DQN step: ``(new state, {"loss"})``."""
+               gen: torch.Generator | None = None, grad_reduce=None):
+        """One DQN step: ``(new state, {"loss"})``. ``grad_reduce``: the
+        data-parallel learner, as ``TD3.update``'s."""
         target = self.td_target(state, batch)
         loss, grad = self.q_grad(state.params, batch.obs.float(),
                                  batch.action, target)
+        if grad_reduce is not None:
+            grad = grad_reduce(grad)
         params, opt = self.tx.update(grad, state.opt, state.params)
         step = state.step + 1
         copy = torch.remainder(step, self.cfg.target_update_period) == 0
@@ -180,4 +183,4 @@ class DQN:
                         target_params=torch.where(copy, params,
                                                   state.target_params),
                         opt=opt, step=step, epsilon=state.epsilon), \
-            {"loss": loss}
+            reduce_metrics(grad_reduce, {"loss": loss})

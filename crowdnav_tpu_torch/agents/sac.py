@@ -19,7 +19,7 @@ import torch
 
 from crowdnav_tpu_torch.agents.optim import Adam, AdamState
 from crowdnav_tpu_torch.agents.replay import Transition
-from crowdnav_tpu_torch.agents.td3 import value_and_grad
+from crowdnav_tpu_torch.agents.td3 import reduce_metrics, value_and_grad
 from crowdnav_tpu_torch.models.networks import (GaussianActor, QCritic,
                                                 ValueNetwork, flatten,
                                                 gaussian_apply, layout,
@@ -210,11 +210,13 @@ class SAC:
     @torch.no_grad()
     def update(self, state: SACState, batch: Transition,
                gen: torch.Generator | None = None,
-               noise: torch.Tensor | None = None):
+               noise: torch.Tensor | None = None, grad_reduce=None):
         """One SAC step on ``batch``: ``(new state, metrics)`` with 0-dim
         ``q_loss``, ``value_loss`` and ``policy_loss``. ``noise``: the
         update's standard normal (B, action_dim), else drawn from
-        ``gen``."""
+        ``gen``. ``grad_reduce``: the data-parallel learner, as
+        ``TD3.update``'s."""
+        reduce = grad_reduce or (lambda g: g)
         cfg = self.cfg
         obs = batch.obs.float()
         if noise is None:
@@ -227,6 +229,7 @@ class SAC:
             * gamma * tv
         ql, q_grad = self.q_grad(state.soft_q_params, obs, batch.action,
                                  next_q)
+        q_grad = reduce(q_grad)
         soft_q, soft_q_opt = self.soft_q_tx.update(
             q_grad, state.soft_q_opt, state.soft_q_params)
 
@@ -236,6 +239,7 @@ class SAC:
                                       new_action)
         next_value = expected_new_q - log_prob
         vl, v_grad = self.value_grad(state.value_params, obs, next_value)
+        v_grad = reduce(v_grad)
         value, value_opt = self.value_tx.update(v_grad, state.value_opt,
                                                 state.value_params)
 
@@ -243,6 +247,7 @@ class SAC:
         log_prob_target = expected_new_q - expected_value
         pl, p_grad = self.policy_grad(state.actor_params, obs, noise,
                                       log_prob_target)
+        p_grad = reduce(p_grad)
         actor, actor_opt = self.actor_tx.update(p_grad, state.actor_opt,
                                                 state.actor_params)
         keep, tau = nm.f32(1.0 - cfg.tau), nm.f32(cfg.tau)
@@ -251,4 +256,5 @@ class SAC:
             value_target=state.value_target * keep + value * tau,
             soft_q_params=soft_q, actor_opt=actor_opt, value_opt=value_opt,
             soft_q_opt=soft_q_opt)
-        return new, {"q_loss": ql, "value_loss": vl, "policy_loss": pl}
+        return new, reduce_metrics(
+            grad_reduce, {"q_loss": ql, "value_loss": vl, "policy_loss": pl})

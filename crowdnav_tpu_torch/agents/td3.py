@@ -103,6 +103,24 @@ def value_and_grad(loss_fn, params: dict) -> tuple:
     return loss.detach(), torch.cat([g.reshape(-1) for g in grads])
 
 
+def reduce_metrics(grad_reduce, metrics: dict) -> dict:
+    """The update's 0-dim metrics averaged over the ranks as the JAX
+    package's ``pmean`` averages them: stacked into one vector and passed
+    through the update's ``grad_reduce`` (None: as they are)."""
+    if grad_reduce is None:
+        return metrics
+    mean = grad_reduce(torch.stack(list(metrics.values())))
+    return dict(zip(metrics, mean.unbind()))
+
+
+def spectrum_rows(cfg, rows, n: int, device) -> torch.Tensor:
+    """(n, 1) per-env epsilons of the exploring rows: the spectrum of the
+    whole batch (``rows`` = (envs in all, first row), the sharded
+    trainer's) cut to this batch's rows, or of these ``n`` rows."""
+    total, first = rows or (n, 0)
+    return eps_spectrum(cfg, total, device=device)[first:first + n, None]
+
+
 def eps_spectrum(cfg: TD3Config, n: int, folded: bool = True,
                  device="cpu") -> torch.Tensor:
     """(n,) float32 per-env epsilons ``eps * (eps_min / eps)^(i / (n-1))``
@@ -160,6 +178,9 @@ class TD3:
         self.lo = torch.tensor([0.0, -cfg.max_ang_vel], device=self.device)
         self.hi = torch.tensor([cfg.max_lin_vel, cfg.max_ang_vel],
                                device=self.device)
+        # (envs in all, first row) of the exploring batch when it is one
+        # rank's rows of a sharded batch (parallel/mesh.py), else None
+        self.env_rows = None
 
     # ---- parameters ----
     def init(self, seed: int = 0):
@@ -240,8 +261,8 @@ class TD3:
             dim=-1)
         if self.cfg.explore_uniform_eps > 0.0:
             if self.cfg.explore_eps_spectrum:
-                eps = eps_spectrum(self.cfg, action.shape[0],
-                                   device=action.device)[:, None]
+                eps = spectrum_rows(self.cfg, self.env_rows,
+                                    action.shape[0], action.device)
             else:
                 eps = torch.clamp(state.explore_eps, 0.0, 1.0)
             action = torch.where(u < eps, unif, action)
@@ -331,11 +352,20 @@ class TD3:
     @torch.no_grad()
     def update(self, state: TD3State, batch: Transition,
                gen: torch.Generator | None = None,
-               smoothing_noise: torch.Tensor | None = None):
+               smoothing_noise: torch.Tensor | None = None,
+               grad_reduce=None):
         """One TD3 gradient step on ``batch``: ``(new state, metrics)``
         with 0-dim tensors ``critic_loss``, ``actor_loss`` and
         ``q_target_mean``. ``smoothing_noise``: pre-drawn standard normal
-        target-smoothing noise (B, 2), else drawn from ``gen``."""
+        target-smoothing noise (B, 2), else drawn from ``gen``.
+
+        ``grad_reduce`` (the JAX ``axis_name``): the data-parallel learner,
+        ``batch`` being this rank's share of the global batch. It maps a
+        flat gradient to the ranks' mean, the sum of the per-rank local
+        mean gradients divided by the rank count, and is applied to each
+        network's gradient where the JAX update applies ``gnorm``; every
+        rank then takes the same optimizer step. The metrics are averaged
+        through it (the JAX ``pmean``)."""
         cfg = self.cfg
         obs = batch.obs.float()
         if smoothing_noise is None:
@@ -345,6 +375,8 @@ class TD3:
         y = self.td_target(state, batch, smoothing_noise)
         c_loss, c_grad = self.critic_grad(state.critic_params, obs,
                                           batch.action, y)
+        if grad_reduce is not None:
+            c_grad = grad_reduce(c_grad)
         critic_params, critic_opt = self.critic_tx.update(
             c_grad, state.critic_opt, state.critic_params)
 
@@ -353,6 +385,8 @@ class TD3:
                                     cfg.policy_update) == 0
         a_loss, a_grad = self.actor_grad(state.actor_params, critic_params,
                                          obs)
+        if grad_reduce is not None:
+            a_grad = grad_reduce(a_grad)
         a_grad = a_grad * do_policy.to(torch.float32)
         actor_params, actor_opt = self.actor_tx.update(
             a_grad, state.actor_opt, state.actor_params)
@@ -372,4 +406,4 @@ class TD3:
             update_count=state.update_count + 1)
         metrics = {"critic_loss": c_loss, "actor_loss": a_loss,
                    "q_target_mean": y.mean()}
-        return new, metrics
+        return new, reduce_metrics(grad_reduce, metrics)

@@ -20,7 +20,10 @@ checkpoint of the port's ``drivers/train`` (a directory of
 of them; ``scripts/export_torch_agent.py`` writes the same format from a
 JAX checkpoint). Without an ``agent_config`` in the metadata (checkpoints
 written before ``run_config.json`` existed) the agent takes its config's
-defaults.
+defaults. ``--trajectory`` adds, per scenario, one env's greedy rollout:
+the reference's trajectory CSV, a path plot and the last frame
+(:func:`trace_scenario`; the plots need matplotlib, and without it the
+flag raises after the CSV is written).
 """
 from __future__ import annotations
 
@@ -114,6 +117,34 @@ def evaluate_scenario(agent, world: str, behavior: str, n_envs: int,
     return summary
 
 
+def trace_scenario(agent, world: str, behavior: str, max_steps: int,
+                   seed: int, outdir: str, algo: str = "td3",
+                   ablation: str | None = None, robot: str | None = None,
+                   device="cuda"):
+    """One env's greedy rollout with every state recorded: the
+    reference's per-step trajectory CSV
+    (``<algo>_<world>_<behavior>_trajectory.csv``), a path plot and the
+    last frame (the JAX ``trace_scenario``; the plots need matplotlib).
+    Unlike the JAX driver's, the rollout's env takes the ablation and the
+    robot of the evaluated agent."""
+    from crowdnav_tpu_torch import viz
+
+    cfg = make_config(world, behavior, max_steps=max_steps,
+                      ablation=ablation, robot=robot)
+    env_cls = CrowdEnv if algo in RISK_ENV_ALGOS else SimpleEnv
+    env = env_cls(cfg, device=device, seed=seed)
+    states, scans, traj, _, _ = viz.trace_rollout(
+        env, lambda obs: agent.act(obs), seed, max_steps,
+        discrete=algo in DISCRETE_ALGOS)
+    tag = f"{algo}_{world}_{behavior}"
+    viz.TrajectoryWriter(outdir, f"{tag}_trajectory").record_rollout(traj)
+    ax = viz.render_trajectory(cfg, traj, title=f"{world}/{behavior}",
+                               label=algo)
+    viz.save_figure(ax, f"{outdir}/{tag}_trajectory.png")
+    ax = viz.render_frame(cfg, viz.state_at(states, -1), scans=scans[-1])
+    viz.save_figure(ax, f"{outdir}/{tag}_final_frame.png")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--algo", default="td3",
@@ -135,6 +166,9 @@ def main(argv=None):
     p.add_argument("--jitter", type=float, default=1.0)
     p.add_argument("--device", default="cuda",
                    help="torch device, 'cuda' (default) or 'cpu'")
+    p.add_argument("--trajectory", action="store_true",
+                   help="also one env's greedy rollout per scenario: the "
+                        "trajectory CSV and the path and frame renders")
     args = p.parse_args(argv)
     try:
         device = resolve(args.device)
@@ -189,6 +223,11 @@ def main(argv=None):
         print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
                           for k, v in summary.items()}), flush=True)
         results.append(summary)
+        if args.trajectory:
+            trace_scenario(agent, world, behavior, args.max_steps,
+                           args.seed + i, args.outdir, algo=args.algo,
+                           ablation=args.ablation, robot=args.robot,
+                           device=device)
     overall = sum(r["success_rate"] for r in results) / len(results)
     print(json.dumps({"suite": args.suite,
                       "overall_success_rate": round(overall, 4)}),

@@ -15,10 +15,19 @@ flagship recipe.
         --world crowd_sparse --behavior random --n-envs 512 --chunk 64 \\
         --updates-per-step 32 --jitter 1.0 --outdir results/torch_dqn
 
-Options of the JAX driver whose modules are not ported raise: several
-devices or hosts and the profiler trace. ``--risk-backend pallas`` runs
-the tracker kernel's Pallas form, ``--learner-dtype bfloat16`` TD3's
-bfloat16 matmuls; the port adds ``--buffer-size``. Config fields the JAX
+Several devices: ``--n-devices N`` starts N ranks on this host, one card
+each (``--device cpu``: N CPU ranks over gloo); ``--multihost`` with
+``--coordinator host:port --num-processes P --process-id i`` (or the
+environment, ``parallel/distributed.init_multihost``) runs this process as
+rank i of P, started the same way on every host. Either trains the sharded
+learner (``parallel/mesh.ShardedTrainer``): ``--n-envs`` and
+``--batch-size`` are global, only rank 0 logs, writes the CSV and the
+agent checkpoint, and each rank writes its own rows of the full trainer
+state (``ckpt_<algo>/rank<i>``) for ``--resume``. ``--profile-dir``
+writes a Chrome trace of chunk 2 (``utils/profiling.trace``).
+``--risk-backend pallas`` runs the tracker kernel's Pallas form,
+``--learner-dtype bfloat16`` TD3's bfloat16 matmuls; the port adds
+``--buffer-size``. Config fields the JAX
 driver does not expose (``lidar_backend``, ``strict_quirks``) reach the
 env through :func:`build`'s overrides. Three faults of the JAX driver
 are not carried over: the final attempt's
@@ -30,7 +39,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import socket
+import subprocess
+import sys
 import time
+
+import torch
 
 from crowdnav_tpu_torch.agents.ddpg import DDPG, DDPGConfig
 from crowdnav_tpu_torch.agents.dqn import DQN, DQNConfig
@@ -40,13 +55,16 @@ from crowdnav_tpu_torch.envs.config import (ABLATION_PRESETS, ROBOT_PRESETS,
                                             make_config)
 from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
 from crowdnav_tpu_torch.envs.simple_env import SimpleEnv
+from crowdnav_tpu_torch.parallel import distributed
+from crowdnav_tpu_torch.parallel.mesh import ShardedTrainer, make_mesh
 from crowdnav_tpu_torch.parallel.runtime import Trainer, TrainerConfig
-from crowdnav_tpu_torch.utils.checkpoint import (restore_checkpoint,
+from crowdnav_tpu_torch.utils.checkpoint import (latest_step,
+                                                 restore_checkpoint,
                                                  save_agent, save_checkpoint,
                                                  save_run_metadata)
 from crowdnav_tpu_torch.utils.device import resolve
 from crowdnav_tpu_torch.utils.logging import EpisodeLogger
-from crowdnav_tpu_torch.utils.profiling import StepThroughput
+from crowdnav_tpu_torch.utils.profiling import StepThroughput, trace_if
 
 
 # the reference's pairing: TD3 and DDPG on the perceived-risk env, SAC and
@@ -150,26 +168,26 @@ def collapse_verdict(summary: dict, chunk: int, args):
     return summary["mean_reward"] < args.collapse_reward_threshold
 
 
-def _refuse_unported(args):
-    bad = []
-    if args.n_devices > 1:
-        bad.append("--n-devices > 1")
-    if args.multihost:
-        bad.append("--multihost")
-    if args.profile_dir:
-        bad.append("--profile-dir")
-    if bad:
-        raise SystemExit("not ported yet: " + ", ".join(bad))
+def _check_flags(args):
     if args.learner_dtype == "bfloat16" and args.algo != "td3":
         raise SystemExit(f"--learner-dtype bfloat16 is not ported for "
                          f"{args.algo} (the JAX driver applies it to TD3 "
                          f"only)")
+    ranks = args.num_processes if args.multihost else args.n_devices
+    if ranks and ranks > 1 and args.n_envs % ranks:
+        raise SystemExit(f"--n-envs {args.n_envs} does not split over "
+                         f"{ranks} ranks")
+    chunks = int(args.env_steps // (args.n_envs * args.chunk))
+    if args.profile_dir and chunks < 3:
+        raise SystemExit(f"--profile-dir traces chunk 2; the run has "
+                         f"{chunks} chunks")
 
 
-def build(args, **overrides) -> Trainer:
-    """The trainer of the command line; ``overrides``: further env config
-    fields."""
-    device = resolve(args.device)
+def build(args, device=None, **overrides) -> Trainer:
+    """The trainer of the command line on ``device`` (default
+    ``--device``): the sharded trainer over the process group's ranks
+    under ``--multihost``; ``overrides``: further env config fields."""
+    device = resolve(args.device if device is None else device)
     knobs = {k: v for k, v in (
         ("actuation_noise", args.actuation_noise),
         ("dt_jitter", args.dt_jitter), ("lidar_noise", args.lidar_noise),
@@ -188,6 +206,9 @@ def build(args, **overrides) -> Trainer:
                          updates_per_step=args.updates_per_step,
                          learn_start=args.learn_start, reset_bank=reset_bank,
                          replay_obs_dtype=args.replay_obs_dtype or "float32")
+    if args.multihost:
+        return ShardedTrainer(env, agent, tcfg, make_mesh(None),
+                              discrete=discrete)
     return Trainer(env, agent, tcfg, discrete=discrete)
 
 
@@ -251,37 +272,122 @@ def parser() -> argparse.ArgumentParser:
 
 
 def _emit(obj):
-    print(json.dumps(obj), flush=True)
+    # one write a line: the ranks of --n-devices share one stdout, and a
+    # line written in two parts (unbuffered, print's text then its
+    # newline) can interleave with another rank's
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(args, argv) -> int:
+    """``--n-devices N``: this command as N ``--multihost`` ranks on this
+    host, rank i on card i (or all on the CPU); returns the exit code,
+    non-zero if a rank failed (the others are then stopped)."""
+    n = args.n_devices
+    try:
+        device = resolve(args.device)
+    except RuntimeError as e:       # --device cuda, no card
+        raise SystemExit(str(e))
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        raise SystemExit(f"--n-devices {n}: this host has "
+                         f"{torch.cuda.device_count()} CUDA devices (one "
+                         f"rank a card)")
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    coordinator = f"localhost:{_free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "crowdnav_tpu_torch.drivers.train", *argv,
+         "--multihost", "--coordinator", coordinator,
+         "--num-processes", str(n), "--process-id", str(i)], env=env)
+        for i in range(n)]
+    try:
+        while True:
+            codes = [proc.poll() for proc in procs]
+            failed = [c for c in codes if c]
+            if failed or all(c == 0 for c in codes):
+                return failed[0] if failed else 0
+            time.sleep(0.2)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser().parse_args(argv)
-    _refuse_unported(args)
+    _check_flags(args)
+    if args.n_devices > 1 and not args.multihost:
+        code = spawn_ranks(args, argv)
+        if code:
+            raise SystemExit(f"a rank exited with code {code}")
+        return None
+    device = None
     try:
-        trainer = build(args)
-    except RuntimeError as e:       # no card for --device cuda
-        raise SystemExit(str(e))
+        if args.multihost:
+            try:
+                device = distributed.init_multihost(
+                    args.coordinator, args.num_processes, args.process_id,
+                    device=args.device)
+            except ValueError as e:     # no coordinator, count or id
+                raise SystemExit(str(e))
+        return _train(args, device)
+    except RuntimeError as e:
+        if "CUDA is not available" in str(e):   # --device cuda, no card
+            raise SystemExit(str(e))
+        raise
+    finally:
+        if args.multihost:
+            distributed.shutdown()
+
+
+def _train(args, device):
+    """The training loop of one process (every rank under
+    ``--multihost``; rank 0 logs and writes the agent's files)."""
+    rank, world = distributed.world()
+    if args.multihost:
+        _emit(distributed.process_summary())
+    trainer = build(args, device)
+    main_rank = rank == 0
+    emit = _emit if main_rank else (lambda obj: None)
     agent = trainer.agent
     t_init = time.time()
     state = trainer.init(args.seed)
-    _emit({"event": "initialized", "secs": round(time.time() - t_init, 1)})
+    emit({"event": "initialized", "secs": round(time.time() - t_init, 1)})
     ckpt_dir = f"{args.outdir}/ckpt_{args.algo}"
+    own_dir = ckpt_dir if world == 1 else f"{ckpt_dir}/rank{rank}"
     agent_dir = f"{args.outdir}/agent_ckpt_{args.algo}"
     snap_dir = f"{args.outdir}/agent_snapshots_{args.algo}"
     steps_done, wasted_steps, attempt = 0, 0, 0
     if args.resume:
-        state, steps_done, counters = restore_checkpoint(ckpt_dir, state)
+        # every rank restores the newest step that all ranks wrote
+        step = latest_step(own_dir)
+        step = distributed.all_min(-1 if step is None else step,
+                                   trainer.device)
+        state, steps_done, counters = restore_checkpoint(
+            own_dir, state, None if step < 0 else step)
         wasted_steps = counters.get("wasted_steps", 0)
         attempt = counters.get("attempt", 0)
-        print(f"resumed from step {steps_done} ({wasted_steps} env-steps "
-              f"of restarted attempts)", flush=True)
+        emit({"event": "resumed", "step": steps_done,
+              "wasted_steps": wasted_steps})
     meta = run_metadata(args, trainer)
-    for d in [ckpt_dir, agent_dir] + ([snap_dir]
-                                      if args.snapshot_every_chunks else []):
-        save_run_metadata(d, meta)
-    logger = EpisodeLogger(args.outdir, f"{args.algo}_training",
-                           extra_headers=["greedy_episodes",
-                                          "greedy_success_rate"])
+    logger = None
+    if main_rank:
+        for d in [ckpt_dir, agent_dir] + (
+                [snap_dir] if args.snapshot_every_chunks else []):
+            save_run_metadata(d, meta)
+        logger = EpisodeLogger(args.outdir, f"{args.algo}_training",
+                               extra_headers=["greedy_episodes",
+                                              "greedy_success_rate"])
 
     spc = args.n_envs * args.chunk
     n_chunks = max(1, int((args.env_steps - steps_done) // spc))
@@ -296,33 +402,39 @@ def main(argv=None):
 
     while chunk < n_chunks:
         t0 = time.time()
-        state = trainer.rollout_chunk(state)
-        tput = throughput.tick()
+        # a trace of chunk 2 (past the first chunks' warm-up), as the JAX
+        # driver
+        with trace_if(args.profile_dir, chunk == 2, f"chunk2_rank{rank}"):
+            state = trainer.rollout_chunk(state)
+            tput = throughput.tick()
         summary, state = trainer.drain_stats(state)
-        logger.record_summary(summary, episode_base, time.time() - t0)
+        if main_rank:
+            logger.record_summary(summary, episode_base, time.time() - t0)
         episode_base += summary["episodes"]
-        _emit({"chunk": chunk,
-               "env_steps": steps_done + wasted_steps + (chunk + 1) * spc,
-               "sps": round(tput["sps"], 1),
-               "sps_ema": round(tput["sps_ema"], 1),
-               **{k: (round(v, 4) if isinstance(v, float) else v)
-                  for k, v in summary.items()}})
+        emit({"chunk": chunk,
+              "env_steps": steps_done + wasted_steps + (chunk + 1) * spc,
+              "sps": round(tput["sps"], 1),
+              "sps_ema": round(tput["sps_ema"], 1),
+              **{k: (round(v, 4) if isinstance(v, float) else v)
+                 for k, v in summary.items()}})
         if args.restart_on_collapse and not verdict_done:
+            # the summary is summed over the ranks: the same verdict on
+            # every rank
             verdict = collapse_verdict(summary, chunk, args)
             if verdict is not None:
                 verdict_done = True
                 restart = verdict and attempt < args.restart_on_collapse
-                _emit({"event": "collapse_check",
-                       "verdict": "collapsed" if verdict else "healthy",
-                       "attempt": attempt, "chunk": chunk,
-                       "mean_reward": round(summary["mean_reward"], 2),
-                       "restart": restart})
+                emit({"event": "collapse_check",
+                      "verdict": "collapsed" if verdict else "healthy",
+                      "attempt": attempt, "chunk": chunk,
+                      "mean_reward": round(summary["mean_reward"], 2),
+                      "restart": restart})
                 if restart:
                     attempt += 1
-                    _emit({"event": "collapse_restart", "attempt": attempt,
-                           "mean_reward": round(summary["mean_reward"], 2),
-                           "threshold": args.collapse_reward_threshold,
-                           "new_seed": args.seed + 1009 * attempt})
+                    emit({"event": "collapse_restart", "attempt": attempt,
+                          "mean_reward": round(summary["mean_reward"], 2),
+                          "threshold": args.collapse_reward_threshold,
+                          "new_seed": args.seed + 1009 * attempt})
                     wasted_steps += steps_done + (chunk + 1) * spc
                     steps_done = 0
                     state = None      # free the ring before the next one
@@ -343,20 +455,21 @@ def main(argv=None):
                 state.agent_state, steps_done + chunk * spc))
         key = steps_done + wasted_steps + chunk * spc
         if args.ckpt_every_chunks and chunk % args.ckpt_every_chunks == 0:
-            save_checkpoint(ckpt_dir, state, steps_done + chunk * spc,
+            save_checkpoint(own_dir, state, steps_done + chunk * spc,
                             counters())
-        if args.snapshot_every_chunks \
+        if main_rank and args.snapshot_every_chunks \
                 and chunk % args.snapshot_every_chunks == 0:
             save_agent(snap_dir, agent, state.agent_state, key, meta)
     final = steps_done + n_chunks * spc
-    save_checkpoint(ckpt_dir, state, final, counters())
-    save_agent(agent_dir, agent, state.agent_state, final + wasted_steps,
-               meta)
+    save_checkpoint(own_dir, state, final, counters())
+    if main_rank:
+        save_agent(agent_dir, agent, state.agent_state,
+                   final + wasted_steps, meta)
     agent.sync_actor(state.agent_state)
-    _emit({"event": "done", "env_steps": wasted_steps + final,
-           "attempt_env_steps": final, "collapse_restarts": attempt,
-           "seconds": round(time.time() - t_start, 1),
-           "device_memory": throughput.device_memory()})
+    emit({"event": "done", "env_steps": wasted_steps + final,
+          "attempt_env_steps": final, "collapse_restarts": attempt,
+          "seconds": round(time.time() - t_start, 1),
+          "device_memory": throughput.device_memory()})
     return state
 
 

@@ -19,6 +19,7 @@ The per-step noise knobs (``actuation_noise``, ``dt_jitter``,
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -79,13 +80,16 @@ def noisy_scans(cfg: EnvConfig, scans, noise, gen=None):
     return torch.where(hit, noisy, scans)
 
 
-def _sense(cfg: EnvConfig, state: EnvState, noise=None, gen=None):
-    """Raycast (the kernel wrapper of the config's lidar backend), the
-    optional hit-beam noise, 3-decimal rounding, world-frame points."""
-    scans = lidar.scan_fn(cfg.lidar_backend)(
-        state.pos, state.yaw, state.ped_pos, cfg.ped_radius,
-        cfg.room_half_inner, cfg.max_scan_range, cfg.lidar_min_range,
-        cfg.n_scans)
+def _sense(cfg: EnvConfig, state: EnvState, noise=None, gen=None,
+           scans=None):
+    """Raycast (the kernel wrapper of the config's lidar backend) or the
+    external ``scans`` of a real sensor, the optional hit-beam noise,
+    3-decimal rounding, world-frame points."""
+    if scans is None:
+        scans = lidar.scan_fn(cfg.lidar_backend)(
+            state.pos, state.yaw, state.ped_pos, cfg.ped_radius,
+            cfg.room_half_inner, cfg.max_scan_range, cfg.lidar_min_range,
+            cfg.n_scans)
     if cfg.lidar_noise > 0.0:
         scans = noisy_scans(cfg, scans, noise, gen)
     scans = nm.round3(scans)
@@ -166,12 +170,13 @@ def _finish_observe(cfg: EnvConfig, state: EnvState, scans,
 
 
 def _observe_batch(cfg: EnvConfig, state: EnvState, compute_cp,
-                   noise=None, gen=None):
+                   noise=None, gen=None, scans=None):
     """Sensor and perception half of the step for the batch: raycast
-    kernel, then ``risk.perceive`` (segmentation in plain PyTorch, the
-    tracker -> CP -> top-K kernel, and the social regions of the segments
-    under ``compute_regions``). ``compute_cp`` is (N,) bool."""
-    scans, points = _sense(cfg, state, noise, gen)
+    kernel (or the external ``scans``), then ``risk.perceive``
+    (segmentation in plain PyTorch, the tracker -> CP -> top-K kernel, and
+    the social regions of the segments under ``compute_regions``).
+    ``compute_cp`` is (N,) bool."""
+    scans, points = _sense(cfg, state, noise, gen, scans)
     waypoint, dtg, htg = _goal_features(cfg, state)
     out = risk.perceive(cfg, scans, points, state.tracks, state.pos,
                         state.prev_pos, compute_cp,
@@ -282,6 +287,29 @@ class CrowdEnv:
         return StepOutput(new_state, obs,
                           torch.where(was_done, 0.0, reward),
                           torch.where(was_done, False, done))
+
+    def observe_external(self, states: EnvState, scans: torch.Tensor,
+                         pos: torch.Tensor, yaw: torch.Tensor,
+                         noise=None, gen: torch.Generator | None = None):
+        """The deployment observation (the JAX ``observe_external``,
+        batched): the perception path on real lidar ``scans`` (N,
+        n_scans) and odometry ``pos`` (N, 2), ``yaw`` (N,) instead of the
+        simulated world, the raycast bypassed; ``(states, obs)``. The
+        robot's previous position is the state's, the step count moves on,
+        and the observation's distance and heading become the state's
+        previous ones. ``noise``: the range noise under ``lidar_noise``
+        (else drawn from ``gen``). As in the JAX package, the tracker chain
+        is the XLA chain's whatever ``risk_backend`` says."""
+        cfg = self.cfg if self.cfg.risk_backend == "xla" \
+            else dataclasses.replace(self.cfg, risk_backend="xla")
+        states = states.replace(prev_pos=states.pos, pos=pos, yaw=yaw,
+                                step=states.step + 1)
+        n = pos.shape[0]
+        states, obs, (dtg, htg), _, _ = _observe_batch(
+            cfg, states,
+            torch.ones((n,), dtype=torch.bool, device=pos.device), noise,
+            gen, scans)
+        return states.replace(prev_distance=dtg, prev_heading=htg), obs
 
     def safety_scores(self, state: EnvState):
         """Per-episode ego and social safety scores, (N,) each."""

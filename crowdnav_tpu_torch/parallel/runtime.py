@@ -136,16 +136,21 @@ class Trainer:
                                            device=self.device)
         self.spans = None
         self.buffer = None
+        # the learner's rows per update and the update's extra keywords
+        # (the sharded trainer's share of the batch and its grad_reduce)
+        self.batch_size = getattr(agent.cfg, "batch_size", None)
+        self.update_kw = {}
         if tcfg.learning:
             act_dim = None if discrete else env.action_dim
-            self.buffer = ReplayBuffer(agent.cfg.buffer_size, env.obs_dim,
-                                       act_dim, block=tcfg.n_envs,
+            self.buffer = ReplayBuffer(self._replay_capacity(),
+                                       env.obs_dim, act_dim,
+                                       block=tcfg.n_envs,
                                        obs_dtype=tcfg.replay_obs_dtype,
                                        device=self.device)
 
     def init(self, seed: int) -> TrainerState:
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        env_states, obs = self.env.reset(self.tcfg.n_envs, gen)
+        env_states, obs = self._reset_envs(gen)
         bank = None
         if self.tcfg.reset_bank:
             bank = self.env.reset(self.tcfg.reset_bank, gen)
@@ -160,6 +165,14 @@ class Trainer:
                 learn_metrics={k: zero.clone()
                                for k in self.agent.METRICS})
         return state
+
+    def _replay_capacity(self) -> int:
+        """Rows of this trainer's replay ring."""
+        return self.agent.cfg.buffer_size
+
+    def _reset_envs(self, gen):
+        """The first episodes of this trainer's envs."""
+        return self.env.reset(self.tcfg.n_envs, gen)
 
     @torch.no_grad()
     def _train_step(self, state: TrainerState,
@@ -248,7 +261,7 @@ class Trainer:
         state = dataclasses.replace(state, replay=replay)
         marks.append(self._mark())
         if not state.learning_open:
-            if int(replay.size) < self.tcfg.learn_start:
+            if self._rows_written(replay) < self.tcfg.learn_start:
                 return state
             state = dataclasses.replace(state, learning_open=True)
         agent_state, metrics = self._learn(state.agent_state, replay,
@@ -256,6 +269,10 @@ class Trainer:
         marks.append(self._mark())
         return dataclasses.replace(state, agent_state=agent_state,
                                    learn_metrics=metrics)
+
+    def _rows_written(self, replay) -> int:
+        """Rows in the replay ring, read on the host (the learn gate)."""
+        return int(replay.size)
 
     def _mark(self):
         """A recorded CUDA event while timing is on, else None."""
@@ -293,7 +310,7 @@ class Trainer:
         the update's keyword; TD3's smoothing noise, SAC's normal); the
         last update's metrics."""
         metrics = None
-        bsz = self.agent.cfg.batch_size
+        bsz = self.batch_size
         own = self.agent.UPDATE_DRAW
         for i in range(self.tcfg.updates_per_step):
             idx = None if draws.sample_idx is None else draws.sample_idx[i]
@@ -302,8 +319,8 @@ class Trainer:
             if own is not None:
                 given = getattr(draws, own[0])
                 kw[own[1]] = None if given is None else given[i]
-            agent_state, metrics = self.agent.update(agent_state, batch,
-                                                     gen=gen, **kw)
+            agent_state, metrics = self.agent.update(
+                agent_state, batch, gen=gen, **kw, **self.update_kw)
         return agent_state, metrics
 
     def rollout_chunk(self, state: TrainerState,
@@ -315,13 +332,17 @@ class Trainer:
                                      else draws[t])
         return state
 
+    def _host_stats(self, values: list) -> list:
+        """The completed-episode counters and sums, on the host."""
+        return [v.item() for v in values]
+
     def drain_stats(self, state: TrainerState):
         """Host-side episode summary; zero the completed-episode counters."""
         s = state.stats
-        host = [v.item() for v in (
+        host = self._host_stats([
             s.episodes, s.successes, s.failures, s.total_reward,
             s.total_steps, s.ego_sum, s.social_sum, s.dtg_sum, s.htg_sum,
-            s.wp_sum, s.greedy_episodes, s.greedy_successes)]
+            s.wp_sum, s.greedy_episodes, s.greedy_successes])
         episodes = int(host[0])
         per = max(episodes, 1)
         summary = {

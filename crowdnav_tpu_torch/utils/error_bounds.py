@@ -390,6 +390,17 @@ def _bparams(agent, net, flat, err=None):
     return {k: Bnd(x, e[k].numpy()) for k, x in v.items()}
 
 
+def actor_action_bound(agent, actor_flat, obs) -> Bnd:
+    """The clipped greedy action of a deterministic actor (TD3's, DDPG's)
+    with the flat parameters ``actor_flat``, for the observations ``obs``
+    (N, obs_dim), as :class:`Bnd`."""
+    cfg = agent.cfg
+    ap = _bparams(agent, "actor", actor_flat)
+    sig, th, _ = _actor_heads_bnd(ap, np.asarray(obs, np.float64))
+    return bclip(_scaled(cfg, sig, th), np.array([0.0, -_f(cfg.max_ang_vel)]),
+                 np.array([_f(cfg.max_lin_vel), _f(cfg.max_ang_vel)]))
+
+
 def bclip_back(x, lo, hi, g):
     """``g`` where ``lo <= x <= hi``; where ``x`` lies within its bound of
     an edge the mask may differ."""

@@ -1,14 +1,67 @@
-"""Throughput counters of the port (``StepThroughput`` of
-``crowdnav_tpu/utils/profiling.py``).
+"""Tracing and throughput counters of the port (``trace``, ``trace_if``,
+``annotate`` and ``StepThroughput`` of ``crowdnav_tpu/utils/profiling.py``).
 
-A chunk's end is a device synchronisation: the counter waits for the card
-before it reads the clock, so the rate is that of finished work.
+``trace`` records the enclosed block with ``torch.profiler`` (the host's
+operators, and the card's kernels and copies when CUDA is up) and writes
+it as a Chrome trace, ``<logdir>/<name>.json`` (chrome://tracing or
+Perfetto); ``annotate`` names a region on that timeline. A chunk's end is
+a device synchronisation: the counter waits for the card before it reads
+the clock, so the rate is that of finished work.
+
+    with trace_if("/tmp/trace", chunk == 2):
+        with annotate("rollout_chunk"):
+            state = trainer.rollout_chunk(state)
+        stats = timer.tick()
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import torch
+
+
+def _activities():
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
+@contextlib.contextmanager
+def trace(logdir: str, name: str = "trace"):
+    """Record the enclosed block with ``torch.profiler`` and write its
+    Chrome trace to ``<logdir>/<name>.json``; yields the profiler (its
+    ``key_averages()`` and ``events()``). The card is synchronised before
+    the recording stops, so that its queued work is in the trace."""
+    os.makedirs(logdir, exist_ok=True)
+    prof = torch.profiler.profile(activities=_activities())
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(logdir, f"{name}.json"))
+
+
+@contextlib.contextmanager
+def trace_if(logdir: str | None, condition: bool, name: str = "trace"):
+    """:func:`trace` when ``logdir`` is set and ``condition`` holds (e.g.
+    exactly one warm chunk), else nothing; yields the profiler or None."""
+    if logdir and condition:
+        with trace(logdir, name) as prof:
+            yield prof
+    else:
+        yield None
+
+
+def annotate(name: str):
+    """A named region on the trace's timeline
+    (``torch.profiler.record_function``)."""
+    return torch.profiler.record_function(name)
 
 
 class StepThroughput:

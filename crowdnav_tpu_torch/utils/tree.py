@@ -29,19 +29,25 @@ def tree_leaves(obj, prefix: str = ""):
     return [] if obj is None else [(prefix[:-1], obj)]
 
 
-def to_device(obj, device):
-    """A copy of ``obj`` with every tensor on ``device``: tensors, dicts,
-    tuples (named too) and lists of them, and dataclasses of tensors;
-    anything else (None, flags, generators) as it is."""
+def map_tensors(fn, obj):
+    """A copy of ``obj`` with ``fn`` applied to every tensor: tensors,
+    dicts, tuples (named too) and lists of them, and dataclasses of
+    tensors; anything else (None, flags, generators) as it is."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().to(device)
+        return fn(obj)
     if isinstance(obj, dict):
-        return {k: to_device(v, device) for k, v in obj.items()}
+        return {k: map_tensors(fn, v) for k, v in obj.items()}
     if isinstance(obj, (tuple, list)):
-        items = [to_device(v, device) for v in obj]
+        items = [map_tensors(fn, v) for v in obj]
         return type(obj)(*items) if hasattr(obj, "_fields") \
             else type(obj)(items)
     if dataclasses.is_dataclass(obj):
-        return type(obj)(**{f.name: to_device(getattr(obj, f.name), device)
+        return type(obj)(**{f.name: map_tensors(fn, getattr(obj, f.name))
                             for f in dataclasses.fields(obj)})
     return obj
+
+
+def to_device(obj, device):
+    """A copy of ``obj`` (as :func:`map_tensors` walks it) with every
+    tensor on ``device``."""
+    return map_tensors(lambda t: t.detach().to(device), obj)

@@ -184,3 +184,28 @@ def test_new_kernel_forms_send_non_cpu_tensors_to_the_kernel(form):
                             torch.ones(n, dtype=torch.bool, device=meta))
     assert track_cp_topk_batch.launches == 0
     assert track_cp_topk_batch.form_launches[form] == 0
+
+
+def test_slice_six_entry_points_refuse_cuda_without_a_card(tmp_path):
+    """The multi-process launch, the deployment loop and the baselines
+    refuse ``device="cuda"`` without a card, as the other entry points:
+    nothing falls back to the CPU."""
+    _no_cuda()
+    from crowdnav_tpu_torch import baselines
+    from crowdnav_tpu_torch.drivers import deploy_realworld, train
+    from crowdnav_tpu_torch.parallel import distributed
+    with pytest.raises(SystemExit):
+        deploy_realworld.main(["--ticks", "1"])
+    with pytest.raises(RuntimeError):
+        deploy_realworld.run_deployment(n_ticks=1)
+    with pytest.raises(RuntimeError):
+        distributed.init_multihost("localhost:1", 1, 0)
+    argv = ["--algo", "td3", "--n-envs", "8", "--outdir", str(tmp_path)]
+    with pytest.raises(SystemExit):
+        train.main(argv + ["--multihost", "--coordinator", "localhost:1",
+                           "--num-processes", "1", "--process-id", "0"])
+    with pytest.raises(SystemExit):
+        train.main(argv + ["--n-devices", "2"])
+    with pytest.raises((RuntimeError, AssertionError)):
+        baselines.fsm_init((2,))
+    assert not os.listdir(tmp_path)

@@ -344,11 +344,26 @@ def test_full_checkpoint_round_trips(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--algo", "ddpg", "--learner-dtype", "bfloat16"], ["--n-devices", "2"],
-    ["--multihost"], ["--profile-dir", "x"]])
-def test_train_driver_refuses_unported_options(flags, tmp_path):
+    ["--algo", "ddpg", "--learner-dtype", "bfloat16"],
+    ["--n-devices", "2", "--n-envs", "3"],
+    ["--multihost"], ["--profile-dir", "x", "--env-steps", "2048"]])
+def test_train_driver_refuses_unported_options(flags, tmp_path,
+                                               monkeypatch):
+    """The option the port leaves out (DDPG's bfloat16 learner) raises;
+    the options of several devices and the profiler trace, ported since,
+    refuse what they cannot run: an env batch that does not split over
+    the ranks, a multi-host launch without a coordinator, a trace of a
+    chunk the run never reaches."""
+    for name in ("JAX_COORDINATOR_ADDRESS", "MASTER_ADDR", "MASTER_PORT",
+                 "JAX_NUM_PROCESSES", "WORLD_SIZE", "JAX_PROCESS_ID",
+                 "RANK"):
+        monkeypatch.delenv(name, raising=False)
     argv = ["--algo", "td3", "--device", "cpu", "--outdir", str(tmp_path)]
-    with pytest.raises(SystemExit, match="not ported"):
+    match = {"--learner-dtype": "not ported", "--n-devices": "does not "
+             "split", "--multihost": "no coordinator",
+             "--profile-dir": "traces chunk 2"}[flags[2 if flags[0] ==
+                                                     "--algo" else 0]]
+    with pytest.raises(SystemExit, match=match):
         ttrain.main(argv + flags)
 
 
