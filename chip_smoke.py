@@ -71,7 +71,16 @@ Phases, each printing one JSON line:
    action within the actor's derived bound, the tick's latency;
 18. ``trajectory``: ``viz.trace_rollout`` of one env under the goal seeker
    and its ``TrajectoryWriter`` CSV, byte-equal to the CPU's;
-19. ``kernels``: one line with each kernel form's times, bounds and
+19. ``native``: the port's C++ host simulator (``native/fastsim.cpp``),
+   built by ``g++`` on the card's host, against the card's world step and
+   raycast at 16,384 envs of ``crowd_dense``/``crowd`` for 64 steps, the
+   native batch set to the card's state before each step: pose,
+   pedestrians, scans and done codes within ``tests/test_native.py``'s
+   tolerances; the native step's host ms beside the card's;
+20. ``oracle``: the ten scenarios of ``tests/test_parity.py``
+   (``parity/scenarios.py``): the port's ``CrowdEnv`` on the card, one
+   env, against the port's NumPy oracle on the host;
+21. ``kernels``: one line with each kernel form's times, bounds and
    launches on every path.
 
 Before them, ``step_parity`` holds the env step on the card against the
@@ -92,8 +101,10 @@ that runs the form (``launches_path``), ``launches_<path>`` every
 training run, ``launches_evaluate`` the TD3 evaluation,
 ``launches_train_<algo>`` and ``launches_evaluate_<algo>`` the other
 learners' runs, ``launches_sharded_rank<r>``, ``launches_multihost_nccl``,
-``launches_deploy`` and ``launches_trajectory`` this slice's paths (the
-last three with their resets' launches).
+``launches_deploy`` and ``launches_trajectory`` the deployment and audit
+paths (the last three with their resets' launches), ``launches_native``
+and ``launches_oracle`` the host simulator's comparison and the oracle's
+scenarios.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; without a CUDA device it fails at once.
@@ -1782,6 +1793,227 @@ def phase_trajectory(torch, dev):
     return out
 
 
+NATIVE_STEPS = 64
+NATIVE_POSE_ATOL = 1e-4     # tests/test_native.py's tolerances
+NATIVE_SCAN_ATOL = 2e-3
+# a beam whose float64 discriminant or hit distance lies this close to 0
+# grazes a pedestrian: the two sides' last-bit differences may decide hit
+# or miss differently there
+GRAZE_EPS = 1e-6
+
+
+def _gxx_version():
+    res = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.splitlines()[0]
+
+
+def _omp_threads():
+    """The OpenMP runtime's thread count (the one ``fastsim`` runs on)."""
+    import ctypes.util
+    name = ctypes.util.find_library("gomp")
+    return ctypes.CDLL(name).omp_get_max_threads() if name else None
+
+
+def _grazing(cfg, x, y, yaw, peds, env, beam):
+    """Whether beam ``beam`` of env ``env`` (arrays of indices) grazes a
+    pedestrian in float64, from the native side's state."""
+    a = yaw[env].astype(np.float64) - beam * (math.pi / 180.0)
+    dx, dy = np.cos(a)[:, None], np.sin(a)[:, None]
+    rx = peds[env, :, 0].astype(np.float64) - x[env, None]
+    ry = peds[env, :, 1].astype(np.float64) - y[env, None]
+    b = rx * dx + ry * dy
+    disc = cfg.ped_radius ** 2 - (rx * rx + ry * ry - b * b)
+    th = b - np.sqrt(np.maximum(disc, 0.0))
+    return ((np.abs(disc) <= GRAZE_EPS)
+            | ((disc >= 0) & (np.abs(th) <= GRAZE_EPS))).any(axis=1)
+
+
+def _done_codes(torch, cfg, pos, scans, step):
+    """``fastsim``'s termination codes from a state and its raw scans:
+    1 at the goal, 2 collided, 3 timed out, 0 live (in that order)."""
+    from crowdnav_tpu_torch.utils import numerics as nm
+    goal = torch.tensor(cfg.goal, dtype=torch.float32, device=pos.device)
+    at_goal = (torch.abs(pos - goal) <= nm.f32(cfg.goal_eps)).all(dim=1)
+    collided = scans.amin(dim=1) < nm.f32(cfg.min_scan_range) \
+        if cfg.min_scan_range > 0 else torch.zeros_like(at_goal)
+    code = torch.where(step >= cfg.max_steps, 3, 0)
+    code = torch.where(collided, 2, code)
+    return torch.where(at_goal, 1, code).to(torch.int32)
+
+
+def _near_threshold(cfg, pos, min_scan):
+    """Envs within tolerance of a termination threshold (the goal box,
+    the collision range; step counts are integers, equal on both
+    sides)."""
+    off = np.abs(np.abs(pos - np.asarray(cfg.goal, np.float32))
+                 - cfg.goal_eps)
+    return (off <= NATIVE_POSE_ATOL).any(axis=1) | (
+        np.abs(min_scan - cfg.min_scan_range) <= NATIVE_SCAN_ATOL)
+
+
+def phase_native(torch, dev, smi):
+    """The port's C++ host simulator (``crowdnav_tpu_torch/native``) built
+    here by ``g++``, then held against the card's world step at the
+    ``bench.py`` cell's width: 16,384 envs of ``crowd_dense``/``crowd``
+    (jitter 0), 64 steps of random actions. Before each step the native
+    batch is set to the card's state (pose, pedestrians, the step count,
+    done 0) and given the crowd velocities the card draws for the step
+    (built as the STATIC family, which keeps the state's velocities: its
+    RANDOM family draws its own); the card steps with
+    ``envs/world.world_step`` and the raycast (its XLA form), the native
+    batch with ``FastSimBatch.step``. Robot pose and pedestrians within
+    1e-4, scans within 2e-3 except beams that graze a pedestrian, done
+    codes equal except in envs within tolerance of a threshold or with a
+    grazing beam."""
+    from crowdnav_tpu_torch import native
+    from crowdnav_tpu_torch.envs import world
+    from crowdnav_tpu_torch.envs.config import CrowdBehavior, make_config
+    from crowdnav_tpu_torch.ops import lidar
+    t0 = time.perf_counter()
+    native.library()
+    build_s = native.build_seconds
+    cfg = make_config("crowd_dense", "crowd")
+    n = N_BIG
+    sim = native.FastSimBatch(
+        dataclasses.replace(cfg, behavior=CrowdBehavior.STATIC), n)
+    state = world.init_state(cfg, n, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    worst = dict.fromkeys(("pose", "yaw", "peds", "scans"), 0.0)
+    grazing = done_excused = done_differ = 0
+    host_ms, card_ms, dones = [], [], np.zeros(4, np.int64)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    _reset_launches()
+    for step in range(NATIVE_STEPS):
+        act = np.stack([rng.uniform(0, 0.22, n), rng.uniform(-2, 2, n)],
+                       1).astype(np.float32)
+        vel = world.random_velocities(cfg, state.ped_pos.shape, gen, dev)
+        for field, value in (("x", state.pos[:, 0]), ("y", state.pos[:, 1]),
+                             ("yaw", state.yaw),
+                             ("prev_x", state.prev_pos[:, 0]),
+                             ("prev_y", state.prev_pos[:, 1]),
+                             ("peds", state.ped_pos), ("ped_vel", vel),
+                             ("step_count", state.step)):
+            getattr(sim, field).copy_(value.cpu())
+        sim.done.zero_()
+        act_card = torch.from_numpy(act).to(dev)
+        torch.cuda.synchronize()
+        start.record()
+        state = world.world_step(cfg, state, act_card, vel_draw=vel)
+        scans = lidar.scan_batch(state.pos, state.yaw, state.ped_pos,
+                                 cfg.ped_radius, cfg.room_half_inner,
+                                 cfg.max_scan_range, cfg.lidar_min_range,
+                                 cfg.n_scans)
+        end.record()
+        t = time.perf_counter()
+        nscans = sim.step(act).numpy()
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        card_ms.append(start.elapsed_time(end))
+        codes = _done_codes(torch, cfg, state.pos, scans, state.step).cpu()
+        pos, yaw = state.pos.cpu().numpy(), state.yaw.cpu().numpy()
+        peds, cscans = state.ped_pos.cpu().numpy(), scans.cpu().numpy()
+        x, y, nyaw = sim.x.numpy(), sim.y.numpy(), sim.yaw.numpy()
+        npeds = sim.peds.numpy()
+        dyaw = np.abs(yaw - nyaw)
+        diffs = {"pose": np.abs(pos - np.stack([x, y], 1)).max(),
+                 "yaw": np.minimum(dyaw, 2 * np.pi - dyaw).max(),
+                 "peds": np.abs(peds - npeds).max()}
+        for k, d in diffs.items():
+            worst[k] = max(worst[k], float(d))
+            if not d <= NATIVE_POSE_ATOL:
+                raise AssertionError(f"native step {step}: {k} differs by "
+                                     f"{d}")
+        dscan = np.abs(cscans - nscans)
+        env, beam = np.nonzero(dscan > NATIVE_SCAN_ATOL)
+        graze = _grazing(cfg, x, y, nyaw, npeds, env, beam)
+        if not graze.all():
+            i = int(np.argmin(graze))
+            raise AssertionError(
+                f"native step {step}: env {env[i]} beam {beam[i]} scans "
+                f"{cscans[env[i], beam[i]]} (card) {nscans[env[i], beam[i]]}"
+                f" (native)")
+        grazing += len(env)
+        worst["scans"] = max(worst["scans"], float(np.where(
+            dscan > NATIVE_SCAN_ATOL, 0.0, dscan).max()))
+        ncodes = sim.done.numpy()
+        dones += np.bincount(ncodes, minlength=4)
+        differ = np.nonzero(codes.numpy() != ncodes)[0]
+        excused = _near_threshold(cfg, pos[differ], np.minimum(
+            cscans[differ].min(axis=1), nscans[differ].min(axis=1)))
+        excused |= np.isin(differ, env)
+        if not excused.all():
+            i = differ[int(np.argmin(excused))]
+            raise AssertionError(f"native step {step}: env {i} done "
+                                 f"{int(codes[i])} (card) {int(ncodes[i])} "
+                                 f"(native)")
+        done_differ += len(differ)
+        done_excused += int(excused.sum())
+    launches = _read_launches()
+    out = {"envs": n, "steps": NATIVE_STEPS, "world": "crowd_dense/crowd",
+           "card": smi, "gxx": _gxx_version(), "gxx_flags": native.GXX_FLAGS,
+           "build_s": build_s, "omp_threads": _omp_threads(),
+           "host_cpu": _cpu_model(), "max_abs_diff": worst,
+           "scan_atol": NATIVE_SCAN_ATOL, "pose_atol": NATIVE_POSE_ATOL,
+           "grazing_beams_beyond_atol": grazing,
+           "compared_beams": n * cfg.n_scans * NATIVE_STEPS,
+           "done_codes_native": dict(zip(("live", "success", "collision",
+                                          "timeout"), dones.tolist())),
+           "done_codes_differing": done_differ,
+           "done_codes_differing_excused": done_excused,
+           "native_step_ms_median": float(np.median(host_ms)),
+           "native_step_ms_all": host_ms,
+           "card_world_step_raycast_ms_median": float(np.median(card_ms)),
+           "card_ms_timing": "event pair around world_step + scan_batch "
+                             "(the host's enqueue included)",
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    emit({"phase": "native", **out})
+    if launches["raycast"] != NATIVE_STEPS:
+        raise AssertionError(f"native: the raycast launched "
+                             f"{launches['raycast']} times in "
+                             f"{NATIVE_STEPS} steps")
+    return out
+
+
+def phase_oracle(torch, dev, smi):
+    """The ten scenarios of ``tests/test_parity.py``
+    (``crowdnav_tpu_torch/parity/scenarios.py``): the port's ``CrowdEnv``
+    on the card, one env, the raycast and the tracker kernel (its XLA
+    form; its strict form in the strict scenario) on its path, against
+    the port's NumPy oracle on the host, within that file's tolerances.
+    Each scenario raises on its first violation."""
+    from crowdnav_tpu_torch.parity import scenarios
+    t0 = time.perf_counter()
+    results = {}
+    _reset_launches()
+    for name in scenarios.SPECS:
+        ts = time.perf_counter()
+        results[name] = dict(scenarios.run(name, dev),
+                             seconds=time.perf_counter() - ts)
+    launches = _read_launches()
+    steps = sum(r["steps"] for r in results.values())
+    worst = {}
+    for r in results.values():
+        for k, v in r.get("max_abs", {}).items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    out = {"scenarios": results, "steps_checked": steps, "card": smi,
+           "max_abs_diff": worst,
+           "tolerances": {"scans": scenarios.SCAN_ATOL,
+                          "goal_features": scenarios.GOAL_ATOL,
+                          "pose": scenarios.POSE_ATOL,
+                          "reward": scenarios.REWARD_ATOL},
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    emit({"phase": "oracle", **out})
+    strict = results["strict_quirks_trajectory"]["steps"]
+    for name, least in (("raycast", steps), ("track_cp_topk", steps - strict),
+                        ("track_cp_topk_strict", strict)):
+        if launches[name] < least:
+            raise AssertionError(f"oracle: {name} launched {launches[name]} "
+                                 f"times in {least} steps")
+    return out
+
+
 PARITY_ENVS = 1024
 PARITY_STEPS = 40
 SIMPLE_PARITY_STEPS = 50
@@ -2137,6 +2369,8 @@ def main():
     nccl = phase_multihost_nccl(torch)
     deploy = phase_deploy(torch, dev)
     trajectory = phase_trajectory(torch, dev)
+    native_run = phase_native(torch, dev, smi)
+    oracle = phase_oracle(torch, dev, smi)
     paths = {"train_pallas": {"launches": train_pallas["launches"],
                               "steps": train_pallas["timed_steps"]},
              "train": {"launches": train["launches"],
@@ -2150,6 +2384,10 @@ def main():
                        "steps": DEPLOY_TICKS}
     paths["trajectory"] = {"launches": trajectory["launches"],
                            "steps": TRAJ_STEPS}
+    paths["native"] = {"launches": native_run["launches"],
+                       "steps": NATIVE_STEPS}
+    paths["oracle"] = {"launches": oracle["launches"],
+                       "steps": oracle["steps_checked"]}
     for name, counts in forms.items():
         paths[name] = {"launches": counts, "steps": FORM_CHUNK}
     emit({"kernels": kernel_line(smi, stats, paths, evaluate, train_agents,

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from crowdnav_tpu_torch.utils import numerics as nm
+from crowdnav_tpu_torch.utils.device import resolve
 
 N_DIST_BINS = 30   # np.arange(0, 3, 0.1): 30 edges, 31 buckets
 N_RAD_BINS = 32    # np.arange(-3.14, 3.14, 0.19625): 32 edges, 33 buckets
@@ -70,8 +71,10 @@ def save_table(path: str, state: TabularState) -> None:
              visited=state.visited.cpu().numpy())
 
 
-def load_table(path: str, device="cpu") -> TabularState:
-    """A table written by :func:`save_table` or by the JAX package."""
+def load_table(path: str, device="cuda") -> TabularState:
+    """A table written by :func:`save_table` or by the JAX package, on
+    ``device``."""
+    device = resolve(device)
     if not path.endswith(".npz"):
         path += ".npz"
     d = np.load(path)
@@ -89,9 +92,9 @@ def act_draws(n: int, n_actions: int, gen: torch.Generator, device):
 
 
 class _TabularBase:
-    def __init__(self, cfg: TabularConfig, device="cpu"):
+    def __init__(self, cfg: TabularConfig, device="cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve(device)
 
     def init(self) -> TabularState:
         shape = (N_STATES, self.cfg.n_actions)

@@ -220,13 +220,12 @@ class EnvConfig:
     state_variant: str = "full"
 
     # --- lidar compute backend ---
-    # (Kept so the two configs stay equal field by field. The port reads
-    # neither backend field: its batched step always calls the wrappers of
-    # its raycast and tracker kernels, which take the plain PyTorch version
-    # on CPU tensors.)
-    # "xla": the fused broadcast/reduce raycast (ops/lidar.py) under vmap;
-    # "pallas": the hand-tiled VMEM kernel (ops/lidar_pallas.py) via the
-    # batched step path (CrowdEnv.step_batch). Numerics identical.
+    # Selects the raycast kernel's form (ops/lidar.scan_fn): "xla", the
+    # JAX package's broadcast/reduce raycast, computed by scan_batch;
+    # "pallas", the JAX package's Pallas kernel's own arithmetic, computed
+    # by scan_batch_pallas. The two forms differ in the last bit of some
+    # ranges. (risk_backend below selects the tracker kernel's form the
+    # same way, through ops/risk.chain_form.)
     lidar_backend: str = "xla"
 
     # --- social-region debug output ---
@@ -238,11 +237,12 @@ class EnvConfig:
     compute_regions: bool = False
 
     # --- risk compute backend ---
-    # "xla": the fixed-shape ops in ops/risk.py under vmap;
-    # "pallas": the fused tracker+CP+topK VMEM kernel
-    # (ops/risk_pallas.py) via CrowdEnv.step_batch — the perceive chain's
-    # ~30 fused XLA kernels collapse into one program per 128-env tile.
-    # Default-quirks only (strict_quirks requires "xla").
+    # Selects the tracker -> CP -> top-K kernel's form
+    # (ops/risk.chain_form, launched by ops/risk_kernel): "xla", the JAX
+    # package's fixed-shape chain's arithmetic (its strict form under
+    # strict_quirks); "pallas", the JAX package's Pallas kernel's own
+    # arithmetic, which differs from "xla" in the last bit. Default quirks
+    # only (strict_quirks requires "xla").
     risk_backend: str = "xla"
 
     # --- perceived risk (environment_stage_1_nobonus.py) ---

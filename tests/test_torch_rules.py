@@ -91,6 +91,20 @@ def test_entry_points_refuse_cuda_without_a_card():
         init_state(cfg, 2)
 
 
+def test_tabular_learners_refuse_cuda_without_a_card(tmp_path):
+    """``QLearning``, ``Sarsa`` and ``load_table`` default to the card, as
+    every other learner, and refuse it without one."""
+    _no_cuda()
+    from crowdnav_tpu_torch.agents import tabular
+    for cls in (tabular.QLearning, tabular.Sarsa):
+        with pytest.raises(RuntimeError):
+            cls(tabular.TabularConfig())
+    algo = tabular.QLearning(tabular.TabularConfig(), device="cpu")
+    tabular.save_table(str(tmp_path / "q"), algo.init())
+    with pytest.raises(RuntimeError):
+        tabular.load_table(str(tmp_path / "q"))
+
+
 def test_wrappers_send_non_cpu_tensors_to_the_kernel():
     """A tensor that is not on the CPU never reaches the plain version:
     the wrapper hands it to the kernel's binding, which refuses anything
@@ -209,3 +223,75 @@ def test_slice_six_entry_points_refuse_cuda_without_a_card(tmp_path):
     with pytest.raises((RuntimeError, AssertionError)):
         baselines.fsm_init((2,))
     assert not os.listdir(tmp_path)
+
+
+def test_native_build_uses_no_fast_math():
+    """The host simulator builds with the JAX package's flags and no
+    fast-math option, so that it computes what that package's library
+    computes, bit for bit."""
+    from crowdnav_tpu_torch import native
+    assert native.GXX_FLAGS == ["-O3", "-fopenmp", "-shared", "-fPIC"]
+    for flag in native.GXX_FLAGS:
+        for opt in ("fast-math", "Ofast", "unsafe-math", "march",
+                    "fp-contract"):
+            assert opt not in flag, flag
+    with open(native.SRC) as fp:
+        text = fp.read()
+    assert "#pragma GCC optimize" not in text
+    assert "optimize(" not in text and "fast-math" not in text
+
+
+def _jax_init_names(sub):
+    path = os.path.join(ROOT, "crowdnav_tpu", sub, "__init__.py")
+    with open(path) as fp:
+        tree = ast.parse(fp.read(), path)
+    return [a.name for node in tree.body if isinstance(node, ast.ImportFrom)
+            for a in node.names]
+
+
+@pytest.mark.parametrize("sub", ["agents", "envs", "models", "parallel",
+                                 "utils"])
+def test_subpackages_export_the_jax_package_names(sub):
+    """Each subpackage gives the names its JAX counterpart's ``__init__``
+    exports, each the port's own object of that name."""
+    import importlib
+    names = _jax_init_names(sub)
+    assert names
+    pkg = importlib.import_module(f"crowdnav_tpu_torch.{sub}")
+    for name in names:
+        module = getattr(getattr(pkg, name), "__module__", None)
+        assert module is None or module.startswith(
+            f"crowdnav_tpu_torch.{sub}."), (name, module)
+
+
+def test_every_module_imports_first():
+    """Every module of the port imports in an interpreter where no other
+    module of the port is loaded yet (no import runs in a circle), and the
+    subpackages' names load no kernel module."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import crowdnav_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            crowdnav_tpu_torch.__path__, "crowdnav_tpu_torch.")]
+
+        def fresh():
+            for k in [k for k in sys.modules
+                      if k.startswith("crowdnav_tpu_torch.")]:
+                del sys.modules[k]
+
+        for name in names:
+            fresh()
+            importlib.import_module(name)
+        fresh()
+        for sub in ("agents", "envs", "models", "parallel", "utils",
+                    "native", "parity"):
+            importlib.import_module("crowdnav_tpu_torch." + sub)
+        kernels = [k for k in sys.modules if ".kernels" in k]
+        print(len(names), kernels)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    count, kernels = res.stdout.split(" ", 1)
+    assert int(count) > 40 and kernels.strip() == "[]", res.stdout

@@ -72,7 +72,7 @@ def test_act_matches_jax(explore):
     q[:40] = 0.0
     q[40:80, 1] = q[40:80, 0]
     algo_j = jtab.QLearning(jtab.TabularConfig())
-    algo_t = ttab.QLearning(ttab.TabularConfig())
+    algo_t = ttab.QLearning(ttab.TabularConfig(), device="cpu")
     n = 512
     s = rng.integers(0, ttab.N_STATES, n)
     s[:64] = np.arange(64) + 10
@@ -100,7 +100,8 @@ def test_batch_updates_match_jax_scan(algo):
     driver's ``lax.scan`` over envs, where ``live``; first visits store
     the reward."""
     jcls, tcls = ALGOS[algo]
-    algo_j, algo_t = jcls(jtab.TabularConfig()), tcls(ttab.TabularConfig())
+    algo_j = jcls(jtab.TabularConfig())
+    algo_t = tcls(ttab.TabularConfig(), device="cpu")
     rng = np.random.default_rng(2)
     q, visited = _table(rng, 0.3)
     n = 256
@@ -138,7 +139,7 @@ def test_batch_updates_match_jax_scan(algo):
 
 def test_decay_epsilon_matches_jax():
     algo_j = jtab.QLearning(jtab.TabularConfig())
-    algo_t = ttab.QLearning(ttab.TabularConfig())
+    algo_t = ttab.QLearning(ttab.TabularConfig(), device="cpu")
     js, ts = algo_j.init(), algo_t.init()
     for _ in range(3000):
         js, ts = algo_j.decay_epsilon(js), algo_t.decay_epsilon(ts)
@@ -179,7 +180,8 @@ def test_rollout_chunk_matches_jax(algo, jitter, learning):
     jenv = SimpleEnv(jc)
     tenv = port_env(TSimpleEnv, jenv, tc)
     jcls, tcls = ALGOS[algo]
-    algo_j, algo_t = jcls(jtab.TabularConfig()), tcls(ttab.TabularConfig())
+    algo_j = jcls(jtab.TabularConfig())
+    algo_t = tcls(ttab.TabularConfig(), device="cpu")
     key = jax.random.PRNGKey(3)
     key, k_env, k_bank = jax.random.split(key, 3)
     reset = jax.jit(jax.vmap(jenv.reset))
@@ -255,7 +257,7 @@ def test_tables_cross_between_the_packages(tmp_path):
     rng = np.random.default_rng(6)
     q, visited = _table(rng)
     jtab.save_table(str(tmp_path / "j"), _jstate(q, visited, 0.3))
-    got = ttab.load_table(str(tmp_path / "j"))
+    got = ttab.load_table(str(tmp_path / "j"), device="cpu")
     np.testing.assert_array_equal(got.q.numpy(), q)
     np.testing.assert_array_equal(got.visited.numpy(), visited)
     assert got.epsilon.item() == np.float32(0.3)
