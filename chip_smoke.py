@@ -91,6 +91,16 @@ envs x 50 steps of ``SimpleEnv`` on ``crowd_sparse``/``random`` in each
 action mode (and 20 steps with the strict quirks, the Pallas raycast and
 the noise knobs), both sides stepped from the same CPU state with the
 same draws every step, every observation and state element bit-equal.
+Then ``scenario_parity`` does the same, 256 envs x 30 steps with
+``max_steps`` 20, on every preset the CPU tests hold to the JAX package
+(``tests/torch_presets.py``): the 23 scenarios of the evaluation suites
+other than ``train`` and the pillars world, the six ablation arms and the
+four robots on ``crowd_dense``/``crowd``, the waffle with the TTC-only CP
+on ``test_12``/``random``, suite ``20`` again under both kernels' Pallas
+forms, and ``SimpleEnv`` in both action modes on ``test_20``/``random_20``
+and ``crowd_sparse``/``crowd`` and with the waffle; it prints each case's
+differing and compared elements, first difference and auto-resets, and
+the kernels' launches by form.
 
 Kernel times are device time alone (``kernels/timing.py``): a burst of
 wrapper calls queued behind ``torch.cuda._sleep``, over input copies that
@@ -104,7 +114,8 @@ learners' runs, ``launches_sharded_rank<r>``, ``launches_multihost_nccl``,
 ``launches_deploy`` and ``launches_trajectory`` the deployment and audit
 paths (the last three with their resets' launches), ``launches_native``
 and ``launches_oracle`` the host simulator's comparison and the oracle's
-scenarios.
+scenarios, ``launches_step_parity`` and ``launches_scenario_parity`` the
+card's side of the two card-against-CPU phases.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; without a CUDA device it fails at once.
@@ -2026,6 +2037,8 @@ PARITY_FORMS = {
                                   actuation_noise=0.05, dt_jitter=0.15,
                                   lidar_noise=0.005),
     "strict_quirks": dict(strict_quirks=True)}
+# SimpleEnv runs the raycast's XLA form whatever its lidar_backend, as
+# the JAX SimpleEnv does: the key shows that the option is ignored
 PARITY_SIMPLE_FORM = dict(strict_quirks=True, lidar_backend="pallas",
                           actuation_noise=0.05, dt_jitter=0.15,
                           lidar_noise=0.005)
@@ -2067,6 +2080,7 @@ def phase_step_parity(torch, dev):
     from crowdnav_tpu_torch.utils import numerics as nm
     from crowdnav_tpu_torch.utils.convert import flax_actor_to_state_dict
     t0 = time.perf_counter()
+    _reset_launches()
     x, y = _trig_inputs(torch)
     trig = {}
     for name, fn, args in (("cos", nm.cos, (x,)), ("sin", nm.sin, (x,)),
@@ -2095,6 +2109,9 @@ def phase_step_parity(torch, dev):
               for mode in ("continuous", "discrete")}
     simple["strict_noise_pallas_lidar"] = _simple_parity(
         torch, dev, False, steps=PARITY_FORM_STEPS, **PARITY_SIMPLE_FORM)
+    launches = _read_launches()
+    steps = sum(r["steps"] for r in
+                [crowd, *forms.values(), *simple.values()])
     emit({"phase": "step_parity", "envs": PARITY_ENVS,
           "steps": PARITY_STEPS, "world": "crowd_dense/crowd, jitter 1.0",
           "differing_elements": total, "compared_elements": n_elems,
@@ -2103,7 +2120,8 @@ def phase_step_parity(torch, dev):
           "forms": forms, "simple_env": simple,
           "trig_samples": TRIG_SAMPLES, "trig_differing": trig,
           "glibc": os.confstr("CS_GNU_LIBC_VERSION"),
-          "host_cpu": _cpu_model(), "seconds": time.perf_counter() - t0})
+          "host_cpu": _cpu_model(), "launches": launches,
+          "seconds": time.perf_counter() - t0})
     bad_simple = {m: r for m, r in simple.items() if r["differing_elements"]}
     bad_forms = {m: r for m, r in forms.items() if r["differing_elements"]}
     if total or any(trig.values()) or bad_simple or bad_forms:
@@ -2111,6 +2129,112 @@ def phase_step_parity(torch, dev):
                              f"{total} elements (first: {first}); trig "
                              f"samples differing: {trig}; SimpleEnv: "
                              f"{bad_simple}; forms: {bad_forms}")
+    return {"launches": launches, "steps": steps}
+
+
+SCENARIO_ENVS = 256
+SCENARIO_STEPS = 30
+SCENARIO_MAX_STEPS = 20      # every env auto-resets inside the 30 steps
+SCENARIO_ARMS = ("no_cp", "basic", "basic_grp", "basic_grp_cp",
+                 "basic_grp_cp_gcp", "no_cpdto")
+SCENARIO_ROBOTS = ("burger", "burger2", "waffle", "waffle_naked")
+# SimpleEnv on the worlds of SAC's and DQN's suites, and with the waffle
+SCENARIO_SIMPLE = (("test_20", "random_20", None),
+                   ("crowd_sparse", "crowd", None),
+                   ("test_20", "random_20", "waffle"))
+PALLAS_BACKENDS = dict(risk_backend="pallas", lidar_backend="pallas")
+
+
+def scenario_cases():
+    """``(name, world, behavior, overrides)`` of every ``CrowdEnv`` preset
+    the CPU tests hold to the JAX package (``tests/torch_presets.py``):
+    the distinct scenarios of the evaluation suites other than ``train``
+    and the pillars world, each ablation arm and each robot on
+    ``crowd_dense``/``crowd``, the waffle with the TTC-only CP on
+    ``test_12``/``random``; then suite ``20`` again under both kernels'
+    Pallas forms."""
+    from crowdnav_tpu_torch.drivers.evaluate import SUITES
+    pairs = []
+    for suite, scen in SUITES.items():
+        pairs += [p for p in scen if suite != "train" and p not in pairs]
+    pairs.append(("turtlebot3_world_pillars", None))
+    cases = [(f"{w}/{b}", w, b, {}) for w, b in pairs]
+    cases += [(f"arm {a}", "crowd_dense", "crowd", dict(ablation=a))
+              for a in SCENARIO_ARMS]
+    cases += [(f"robot {r}", "crowd_dense", "crowd", dict(robot=r))
+              for r in SCENARIO_ROBOTS]
+    cases.append(("test_12/random waffle basic_grp_cp", "test_12", "random",
+                  dict(robot="waffle", ablation="basic_grp_cp")))
+    cases += [(f"{w}/{b} pallas backends", w, b, PALLAS_BACKENDS)
+              for w, b in SUITES["20"]]
+    return cases
+
+
+def phase_scenario_parity(torch, dev):
+    """The env step on the card against the step on the CPU on every
+    preset the CPU tests hold to the JAX package: ``SCENARIO_ENVS`` envs x
+    ``SCENARIO_STEPS`` steps each (``max_steps`` ``SCENARIO_MAX_STEPS``,
+    jitter 1.0), both sides stepped from the same CPU state with the same
+    draws every step (``_crowd_parity``, ``_simple_parity``). The full
+    398-dim state takes the ``final_full`` actor's greedy actions, the
+    other state variants seeded uniform actions."""
+    from crowdnav_tpu_torch.drivers.evaluate import build_agent, \
+        load_actor_file
+    from crowdnav_tpu_torch.envs.config import make_config
+    from crowdnav_tpu_torch.utils.convert import flax_actor_to_state_dict
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    params, meta = load_actor_file(ACTOR_FILE)
+    dim = make_config("crowd_dense", "crowd").state_dim_risk
+    agent = build_agent(meta["agent_config"], dim, cpu)
+    agent.load_actor(flax_actor_to_state_dict(params))
+    _reset_launches()
+    results = {}
+    for name, world_name, behavior, over in scenario_cases():
+        cfg = make_config(world_name, behavior, jitter=1.0,
+                          max_steps=SCENARIO_MAX_STEPS, **over)
+        full = cfg.state_variant == "full"
+        assert not full or cfg.state_dim_risk == dim, name
+        r = _crowd_parity(torch, dev, cfg, agent if full else None,
+                          SCENARIO_STEPS, envs=SCENARIO_ENVS)
+        results[name] = {"actions": "final_full" if full else "uniform",
+                         **{k: r[k] for k in (
+                             "differing_elements", "compared_elements",
+                             "first_difference", "auto_resets")}}
+    for world_name, behavior, robot in SCENARIO_SIMPLE:
+        for mode in ("continuous", "discrete"):
+            r = _simple_parity(
+                torch, dev, mode == "discrete", steps=SCENARIO_STEPS,
+                world_name=world_name, behavior=behavior,
+                envs=SCENARIO_ENVS, max_steps=SCENARIO_MAX_STEPS,
+                robot=robot)
+            results[f"simple {world_name}/{behavior} {robot or 'burger'} "
+                    f"{mode}"] = {"actions": "uniform", **{k: r[k] for k in (
+                        "differing_elements", "compared_elements",
+                        "first_difference", "auto_resets")}}
+    launches = _read_launches()
+    total = sum(r["differing_elements"] for r in results.values())
+    out = {"phase": "scenario_parity", "envs": SCENARIO_ENVS,
+           "steps": SCENARIO_STEPS, "max_steps": SCENARIO_MAX_STEPS,
+           "jitter": 1.0, "scenarios": results,
+           "differing_elements": total,
+           "compared_elements": sum(r["compared_elements"]
+                                    for r in results.values()),
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    emit(out)
+    bad = {k: r for k, r in results.items() if r["differing_elements"]}
+    if bad:
+        raise AssertionError(f"scenario_parity: the card's step differs "
+                             f"from the CPU's in {total} elements: {bad}")
+    no_reset = [k for k, r in results.items() if not r["auto_resets"]]
+    if no_reset:
+        raise AssertionError(f"scenario_parity: no auto-reset in {no_reset}")
+    for kernel in ("raycast", "raycast_pallas", "track_cp_topk",
+                   "track_cp_topk_pallas"):
+        if not launches[kernel]:
+            raise AssertionError(f"scenario_parity: {kernel} never launched")
+    return {"launches": launches,
+            "steps": SCENARIO_STEPS * len(results)}
 
 
 def _noise(torch, cfg, n, gen):
@@ -2125,11 +2249,19 @@ def _noise(torch, cfg, n, gen):
     return d
 
 
-def _crowd_parity(torch, dev, cfg, agent, steps):
-    """``CrowdEnv`` with ``cfg``, ``PARITY_ENVS`` envs x ``steps`` steps of
-    the ``final_full`` actor's greedy actions, each step taken from the
-    same CPU state on both devices with the same crowd and noise draws:
-    the differing elements, by field, and the first difference."""
+def _uniform_actions(torch, n, gen):
+    """(n, 2) uniform (lin, ang) actions over the robot's box, drawn on the
+    CPU from ``gen``."""
+    return torch.rand((n, 2), generator=gen) \
+        * torch.tensor([0.22, 4.0]) - torch.tensor([0.0, 2.0])
+
+
+def _crowd_parity(torch, dev, cfg, agent, steps, envs=PARITY_ENVS):
+    """``CrowdEnv`` with ``cfg``, ``envs`` envs x ``steps`` steps of the
+    ``final_full`` actor's greedy actions (seeded uniform actions when
+    ``agent`` is None), each step taken from the same CPU state on both
+    devices with the same crowd and noise draws: the differing elements,
+    by field, and the first difference."""
     from crowdnav_tpu_torch.envs import world
     from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
     from crowdnav_tpu_torch.utils.tree import to_device, tree_leaves
@@ -2140,13 +2272,14 @@ def _crowd_parity(torch, dev, cfg, agent, steps):
     # draw different numbers from one seed)
     env_g.template = to_device(env_c.template, dev)
     gen = torch.Generator().manual_seed(0)
-    state, obs = env_c.reset(PARITY_ENVS, gen)
+    state, obs = env_c.reset(envs, gen)
     counts, first, n_elems, resets = {}, None, 0, 0
     for step in range(steps):
-        act = agent.act(obs)
+        act = agent.act(obs) if agent is not None else \
+            _uniform_actions(torch, envs, gen)
         # the crowd's fresh velocities and the noise, drawn once
         vel = world.random_velocities(cfg, state.ped_pos.shape, gen, cpu)
-        noise = _noise(torch, cfg, PARITY_ENVS, gen)
+        noise = _noise(torch, cfg, envs, gen)
         out_c = env_c.step_batch(state, act, vel_draw=vel, noise=noise)
         out_g = env_g.step_batch(
             to_device(state, dev), act.to(dev), vel_draw=vel.to(dev),
@@ -2171,41 +2304,43 @@ def _crowd_parity(torch, dev, cfg, agent, steps):
     return {"config": {k: getattr(cfg, k) for k in
                        ("risk_backend", "lidar_backend", "strict_quirks",
                         "actuation_noise", "dt_jitter", "lidar_noise")},
-            "envs": PARITY_ENVS, "steps": steps, "auto_resets": resets,
+            "envs": envs, "steps": steps, "auto_resets": resets,
             "differing_elements": sum(counts.values()),
             "compared_elements": n_elems, "first_difference": first,
             "by_field": {k: v for k, v in counts.items() if v}}
 
 
-def _simple_parity(torch, dev, discrete, steps=None, **over):
-    """``SimpleEnv`` on ``crowd_sparse``/``random`` (jitter 1.0, and the
-    config overrides ``over``), each step taken from the same CPU state on
-    both devices with the same random actions (indices into the discrete
-    table, or (lin, ang) from the box), crowd velocities and noise; the
-    number of differing elements."""
+def _simple_parity(torch, dev, discrete, steps=None, *,
+                   world_name="crowd_sparse", behavior="random",
+                   envs=PARITY_ENVS, max_steps=40, **over):
+    """``SimpleEnv`` on ``world_name``/``behavior`` (jitter 1.0,
+    ``max_steps``, and the config overrides ``over``), ``envs`` envs, each
+    step taken from the same CPU state on both devices with the same
+    random actions (indices into the discrete table, or (lin, ang) from
+    the box), crowd velocities and noise; the number of differing
+    elements."""
     from crowdnav_tpu_torch.envs import world
     from crowdnav_tpu_torch.envs.config import make_config
     from crowdnav_tpu_torch.envs.simple_env import SimpleEnv
     from crowdnav_tpu_torch.utils.tree import to_device, tree_leaves
-    cfg = make_config("crowd_sparse", "random", jitter=1.0, max_steps=40,
+    cfg = make_config(world_name, behavior, jitter=1.0, max_steps=max_steps,
                       **over)
     steps = SIMPLE_PARITY_STEPS if steps is None else steps
     cpu = torch.device("cpu")
     env_c, env_g = SimpleEnv(cfg, cpu), SimpleEnv(cfg, dev)
     env_g.template = to_device(env_c.template, dev)
     gen = torch.Generator().manual_seed(3)
-    state, obs = env_c.reset(PARITY_ENVS, gen)
+    state, obs = env_c.reset(envs, gen)
     differ, n_elems, first, resets = 0, 0, None, 0
     for step in range(steps):
         if discrete:
-            act = torch.randint(0, 3, (PARITY_ENVS,), generator=gen)
+            act = torch.randint(0, 3, (envs,), generator=gen)
             fn_c, fn_g = env_c.step_discrete, env_g.step_discrete
         else:
-            act = torch.rand((PARITY_ENVS, 2), generator=gen) \
-                * torch.tensor([0.22, 4.0]) - torch.tensor([0.0, 2.0])
+            act = _uniform_actions(torch, envs, gen)
             fn_c, fn_g = env_c.step_batch, env_g.step_batch
         vel = world.random_velocities(cfg, state.ped_pos.shape, gen, cpu)
-        noise = _noise(torch, cfg, PARITY_ENVS, gen)
+        noise = _noise(torch, cfg, envs, gen)
         out_c = fn_c(state, act, vel_draw=vel, noise=noise)
         out_g = fn_g(to_device(state, dev), act.to(dev),
                      vel_draw=vel.to(dev),
@@ -2223,8 +2358,9 @@ def _simple_parity(torch, dev, discrete, steps=None, **over):
                 first = {"step": step, "field": name, "elements": d}
         resets += int(state.done.sum())
         state = out_c.state
-    return {"world": "crowd_sparse/random, jitter 1.0, max_steps 40",
-            "overrides": over, "envs": PARITY_ENVS, "steps": steps,
+    return {"world": f"{world_name}/{behavior}, jitter 1.0, max_steps "
+                     f"{max_steps}",
+            "overrides": over, "envs": envs, "steps": steps,
             "auto_resets": resets, "differing_elements": differ,
             "compared_elements": n_elems, "first_difference": first}
 
@@ -2352,7 +2488,8 @@ def main():
     torch.cuda.set_device(dev)
     smi = phase_device(torch)
     first_lib = phase_build()
-    phase_step_parity(torch, dev)
+    step_parity = phase_step_parity(torch, dev)
+    scenario_parity = phase_scenario_parity(torch, dev)
     stats = {"raycast": phase_raycast(torch, dev, first_lib),
              "track_cp_topk": phase_track(torch, dev, first_lib)}
     stats.update(phase_kernel_forms(torch, dev))
@@ -2390,6 +2527,8 @@ def main():
                        "steps": oracle["steps_checked"]}
     for name, counts in forms.items():
         paths[name] = {"launches": counts, "steps": FORM_CHUNK}
+    paths["step_parity"] = step_parity
+    paths["scenario_parity"] = scenario_parity
     emit({"kernels": kernel_line(smi, stats, paths, evaluate, train_agents,
                                  eval_agents)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

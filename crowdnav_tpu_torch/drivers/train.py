@@ -183,10 +183,12 @@ def _check_flags(args):
                          f"{chunks} chunks")
 
 
-def build(args, device=None, **overrides) -> Trainer:
+def build(args, device=None, learning: bool = True,
+          **overrides) -> Trainer:
     """The trainer of the command line on ``device`` (default
     ``--device``): the sharded trainer over the process group's ranks
-    under ``--multihost``; ``overrides``: further env config fields."""
+    under ``--multihost``; ``learning`` False gives the rollout without
+    replay or updates; ``overrides``: further env config fields."""
     device = resolve(args.device if device is None else device)
     knobs = {k: v for k, v in (
         ("actuation_noise", args.actuation_noise),
@@ -205,7 +207,8 @@ def build(args, device=None, **overrides) -> Trainer:
     tcfg = TrainerConfig(n_envs=args.n_envs, rollout_chunk=args.chunk,
                          updates_per_step=args.updates_per_step,
                          learn_start=args.learn_start, reset_bank=reset_bank,
-                         replay_obs_dtype=args.replay_obs_dtype or "float32")
+                         replay_obs_dtype=args.replay_obs_dtype or "float32",
+                         learning=learning)
     if args.multihost:
         return ShardedTrainer(env, agent, tcfg, make_mesh(None),
                               discrete=discrete)

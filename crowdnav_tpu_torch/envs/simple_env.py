@@ -8,14 +8,13 @@ distance to the goal (rounded to 2), and the robot's position (rounded to
 moved toward the goal, with +200 at the goal and -200 on a collision
 (``min(scans) < 0.105``) or a timeout; there are no waypoints and no
 tracker. An env whose episode ended on the previous step restores the
-deterministic reset template. The raycast goes through the kernel wrapper
-of the config's ``lidar_backend`` (``ops.lidar.scan_batch``, or
-``scan_batch_pallas``), which launches the CUDA raycast on CUDA tensors.
-(The JAX package's ``SimpleEnv`` always runs the XLA raycast; the port
-runs the Pallas form under ``lidar_backend="pallas"``, as the JAX
-``CrowdEnv`` does.) The per-step noise knobs and ``strict_quirks`` (the
-reference's shaping, which reads the agent's y and x as the distance and
-heading) act as in the JAX package, with draws as in ``CrowdEnv``.
+deterministic reset template. The raycast is its XLA form
+(``ops.lidar.scan_batch``, which launches the CUDA raycast on CUDA
+tensors) whatever the config's ``lidar_backend``, as the JAX package's
+``SimpleEnv`` runs ``lidar.scan``. The per-step noise knobs and
+``strict_quirks`` (the reference's shaping, which reads the agent's y and
+x as the distance and heading) act as in the JAX package, with draws as
+in ``CrowdEnv``.
 
 Both action modes of the reference: continuous (lin, ang)
 (:meth:`SimpleEnv.step_batch`) and the discrete FORWARD / LEFT / RIGHT
@@ -46,7 +45,6 @@ class SimpleEnv:
     auto-reset restores."""
 
     def __init__(self, cfg: EnvConfig, device="cuda", seed: int = 0):
-        lidar.scan_fn(cfg.lidar_backend)
         self.cfg = cfg
         self.device = resolve(device)
         self.obs_dim = cfg.state_dim_simple
@@ -59,7 +57,7 @@ class SimpleEnv:
 
     def _observe(self, state: EnvState, noise=None, gen=None):
         cfg = self.cfg
-        scans = lidar.scan_fn(cfg.lidar_backend)(
+        scans = lidar.scan_batch(
             state.pos, state.yaw, state.ped_pos, cfg.ped_radius,
             cfg.room_half_inner, cfg.max_scan_range, cfg.lidar_min_range,
             cfg.n_scans)

@@ -3,20 +3,26 @@ JAX package's ``bench.py`` (``bench_config``), run through the functions
 the port's ``drivers/train`` calls.
 
     python scripts/bench_torch_train.py [--repeats 3] [--profile-steps 8]
+        [--risk-backend pallas] [--dtype float32] [--with-pallas-lidar]
 
-The cell: world ``crowd_dense``, behavior ``crowd``, jitter 1.0, reset
-bank 256, the 398-dim observation, 16,384 envs, chunks of 64 steps, 32
-updates x batch 4,096 a batched step, ``learn_start`` 256, bfloat16
-replay observations, a float32 MLP with TF32 off, and the epsilon
-spectrum of the flagship recipe (``scripts/r5_chain_v.txt:21``; the JAX
-``bench.py`` explores with its defaults). Each repeat builds a fresh
-trainer, runs one warm-up chunk and ``--iters`` timed chunks (host clock
-around work that ends in a device synchronisation), for the learning
-variant and the ``--no-learn`` variant (the evaluation rollout, greedy
-actions, no replay). Prints one JSON line: env-steps/s of each variant
-(median, min, max over the repeats), peak device memory, and with
-``--profile-steps`` a ``torch.profiler`` window of the learning step
-(device busy share, kernel launches per step, the largest kernels). It
+The cell, as ``bench.py`` builds it: world ``crowd_dense``, behavior
+``crowd``, jitter 1.0, the env config's ``max_steps``, reset bank 256,
+the 398-dim observation, 16,384 envs, chunks of 64 steps, 32 updates x
+batch 4,096 a batched step, ``learn_start`` 256, bfloat16 replay
+observations, the tracker's Pallas form (``--risk-backend``, default
+``pallas`` as ``bench.py``), the learner's ``--dtype`` (float32 by
+default) with TF32 off, and ``TD3Config``'s exploration defaults (a
+constant Gaussian sigma of 1.0, no uniform mixing, no epsilon spectrum).
+Each repeat builds a fresh trainer, runs one warm-up chunk and
+``--iters`` timed chunks (host clock around work that ends in a device
+synchronisation), for the learning variant and the no-learn variant (the
+evaluation rollout, greedy actions, no replay). Prints one JSON line:
+env-steps/s of each variant (median, min, max over the repeats), peak
+device memory, the card's name and power limit, the host's CPU model, and
+with ``--profile-steps`` a ``torch.profiler`` window of the learning step
+(device busy share, kernel launches per step, the largest kernels). With
+``--with-pallas-lidar`` a line for the raycast's Pallas form comes first,
+as ``bench.py`` prints it; the main configuration's line is the last. It
 needs a CUDA device; it fails without one.
 """
 from __future__ import annotations
@@ -34,30 +40,30 @@ sys.path.insert(0, ROOT)
 
 
 def flags(args):
+    """The port's ``drivers/train`` command line of the cell."""
+    from crowdnav_tpu_torch.envs.config import EnvConfig
     return ["--algo", "td3", "--world", "crowd_dense", "--behavior",
-            "crowd", "--jitter", "1.0", "--reset-bank", "256", "--n-envs",
+            "crowd", "--jitter", "1.0", "--max-steps",
+            str(EnvConfig.max_steps), "--reset-bank", "256", "--n-envs",
             str(args.n_envs), "--chunk", str(args.chunk),
             "--updates-per-step", str(args.updates_per_step),
             "--batch-size", str(args.batch_size), "--learn-start", "256",
-            "--replay-obs-dtype", "bfloat16", "--explore-eps", "1.0",
-            "--explore-eps-min", "0.05", "--explore-spectrum", "--seed", "0",
+            "--replay-obs-dtype", args.replay_obs_dtype, "--risk-backend",
+            args.risk_backend, "--learner-dtype", args.dtype, "--seed", "0",
             "--device", "cuda"]
 
 
-def build(args, learning: bool):
-    import dataclasses
-
+def build(args, learning: bool, lidar_backend: str = "xla", device=None):
+    """The cell's trainer on ``device`` (default the card); with
+    ``learning`` False the no-learn variant, which holds no replay ring."""
     from crowdnav_tpu_torch.drivers import train as dtrain
-    trainer = dtrain.build(dtrain.parser().parse_args(flags(args)))
-    if not learning:
-        from crowdnav_tpu_torch.parallel.runtime import Trainer
-        trainer = Trainer(trainer.env, trainer.agent, dataclasses.replace(
-            trainer.tcfg, learning=False))
-    return trainer
+    return dtrain.build(dtrain.parser().parse_args(flags(args)),
+                        device=device, learning=learning,
+                        lidar_backend=lidar_backend)
 
 
-def run(args, learning: bool, torch):
-    trainer = build(args, learning)
+def run(args, learning: bool, torch, lidar_backend: str = "xla"):
+    trainer = build(args, learning, lidar_backend)
     state = trainer.init(0)
     if not learning:
         trainer.agent.init(0)
@@ -123,7 +129,21 @@ def profile(args, trainer, state, torch):
                                                 for k, (c, t) in host_top}}
 
 
-def main(argv=None):
+def host_cpu():
+    """The host's CPU model (``/proc/cpuinfo``), or None."""
+    try:
+        with open("/proc/cpuinfo") as fp:
+            for line in fp:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return None
+
+
+def parser():
+    """``bench.py``'s options (the same names and defaults), and the
+    port's ``--repeats`` and ``--profile-steps``."""
     p = argparse.ArgumentParser()
     p.add_argument("--n-envs", type=int, default=16384)
     p.add_argument("--chunk", type=int, default=64)
@@ -131,32 +151,45 @@ def main(argv=None):
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--updates-per-step", type=int, default=32)
     p.add_argument("--batch-size", type=int, default=4096)
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="the learner's compute dtype (TD3Config)")
+    p.add_argument("--replay-obs-dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--risk-backend", default="pallas",
+                   choices=["xla", "pallas"],
+                   help="the tracker kernel's form; bench.py's default")
+    p.add_argument("--with-pallas-lidar", action="store_true",
+                   help="first a line with the raycast's Pallas form")
     p.add_argument("--profile-steps", type=int, default=0)
-    args = p.parse_args(argv)
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("bench_torch_train: no CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
+    return p
+
+
+def measure(args, torch, lidar_backend: str, smi: str):
+    """One configuration's JSON line: both variants over the repeats."""
     out = {"metric": "env_steps_per_sec_td3_risk_k8_crowd_dense_torch",
            "unit": "env-steps/s", "card": smi,
-           "device": torch.cuda.get_device_name(0),
+           "device": torch.cuda.get_device_name(0), "host_cpu": host_cpu(),
            "config": {"n_envs": args.n_envs, "chunk": args.chunk,
                       "iters": args.iters, "repeats": args.repeats,
                       "updates_per_step": args.updates_per_step,
                       "batch_size": args.batch_size, "reset_bank": 256,
-                      "replay_obs_dtype": "bfloat16", "jitter": 1.0,
-                      "explore": "eps spectrum 1.0 -> 0.05",
+                      "replay_obs_dtype": args.replay_obs_dtype,
+                      "jitter": 1.0, "dtype": args.dtype,
+                      "risk_backend": args.risk_backend,
+                      "lidar_backend": lidar_backend,
+                      "explore": "TD3Config defaults (sigma 1.0, no "
+                                 "uniform mixing, no spectrum)",
                       "matmul_allow_tf32": False}}
+    if lidar_backend == "pallas":
+        out["metric"] += "_pallas_lidar"
     for learning in (True, False):
         name = "learning" if learning else "no_learn"
         rates = []
         torch.cuda.reset_peak_memory_stats()
         for _ in range(args.repeats):
-            sps, trainer, state, summary = run(args, learning, torch)
+            sps, trainer, state, _ = run(args, learning, torch,
+                                         lidar_backend)
             rates.append(sps)
             if learning and args.profile_steps and len(rates) == 1:
                 out["profile"] = profile(args, trainer, state, torch)
@@ -165,6 +198,23 @@ def main(argv=None):
                      "max": max(rates), "runs": rates,
                      "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     out["value"] = out["learning"]["median"]
+    return out
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_torch_train: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    if args.with_pallas_lidar:
+        print(json.dumps(measure(args, torch, "pallas", smi)), flush=True)
+    # the main configuration last, as bench.py prints it
+    out = measure(args, torch, "xla", smi)
     print(json.dumps(out), flush=True)
     return out
 

@@ -17,6 +17,7 @@ from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv as TCrowdEnv
 from test_torch_world import jax_crowd_draws, jax_reset_draws
 from torch_parity import (assert_env_state_equal, env_state_to_torch,
                           jax_noise_draws)
+from torch_presets import check_preset
 
 torch.set_num_threads(1)
 N, STEPS = 16, 12
@@ -89,32 +90,52 @@ def test_step_batch_matches_jax_rollout(envs):
     assert resets > 0, "the rollout never exercised the auto-reset"
 
 
-@pytest.mark.parametrize("ablation", ["no_cp", "basic", "basic_grp"])
-def test_state_variants_match_jax(ablation):
-    """The ablation arms' observations (the ``_finish_observe`` variants)
-    over a short rollout of the JAX package's vmapped step."""
-    kw = dict(jitter=1.0, max_steps=6, ablation=ablation)
-    jc = make_config("crowd_dense", "crowd", **kw)
-    tc = tcfg.make_config("crowd_dense", "crowd", **kw)
-    jenv = CrowdEnv(jc)
-    tenv = _port_env(jenv, tc)
-    n = 8
-    js, _ = jax.jit(jax.vmap(jenv.reset))(
-        jax.random.split(jax.random.PRNGKey(4), n))
-    step = jax.jit(jax.vmap(jenv.step))
-    rng = np.random.default_rng(2)
-    for t in range(8):
-        act = rng.uniform([0.0, -2.0], [0.22, 2.0], (n, 2)).astype(
-            np.float32)
-        got = tenv.step_batch(env_state_to_torch(js), torch.from_numpy(act),
-                              vel_draw=jax_crowd_draws(jc, js))
-        out = step(js, jnp.asarray(act))
-        assert got.obs.shape == (n, jc.state_dim_risk)
-        np.testing.assert_array_equal(got.obs.numpy(), np.asarray(out.obs),
-                                      err_msg=f"step {t} obs")
-        np.testing.assert_array_equal(got.reward.numpy(),
-                                      np.asarray(out.reward))
-        js = out.state
+# every ablation arm and every robot on the training world, and the
+# waffle's 3.5 m lidar range in the 5 m room under a CP-weight arm
+VARIANTS = [("crowd_dense", "crowd", dict(ablation=a)) for a in
+            ("no_cp", "basic", "basic_grp", "basic_grp_cp",
+             "basic_grp_cp_gcp", "no_cpdto")]
+VARIANTS += [("crowd_dense", "crowd", dict(robot=r)) for r in
+             ("burger", "burger2", "waffle", "waffle_naked")]
+VARIANTS += [("test_12", "random", dict(robot="waffle",
+                                        ablation="basic_grp_cp"))]
+
+
+def _variant_cases():
+    """Each variant under the Pallas tracker, and under the XLA tracker
+    once for each distinct configuration (``burger``, ``burger2`` and
+    ``basic_grp_cp_gcp`` are the default config, ``no_cpdto`` is
+    ``basic_grp_cp``'s, ``waffle_naked`` the ``waffle``'s)."""
+    cases, ids, seen = [], [], []
+    for world, behavior, kw in VARIANTS:
+        name = "-".join(kw[k] for k in ("robot", "ablation") if k in kw)
+        if world != "crowd_dense":
+            name = f"{world}-{behavior}-{name}"
+        cases.append((world, behavior, kw, "pallas"))
+        ids.append(name)
+        cfg = tcfg.make_config(world, behavior, **kw)
+        if cfg not in seen:
+            seen.append(cfg)
+            cases.append((world, behavior, kw, "xla"))
+            ids.append(f"{name}-xla")
+    return cases, ids
+
+
+VARIANT_CASES, VARIANT_IDS = _variant_cases()
+
+
+@pytest.mark.parametrize("world,behavior,kw,backend", VARIANT_CASES,
+                         ids=VARIANT_IDS)
+def test_state_variants_match_jax(world, behavior, kw, backend):
+    """Every ``ABLATION_PRESETS`` arm (the ``_finish_observe`` state
+    variants and the CP weights) and every ``ROBOT_PRESETS`` robot, and
+    the waffle with the TTC-only CP on ``test_12``/``random``, under the
+    tracker's Pallas form (the JAX kernel in interpret mode) and, once a
+    distinct config, its XLA form: the port's ``step_batch`` against the
+    jitted JAX ``step_batch`` of the same config, 16 envs x 12 steps with
+    ``max_steps`` 8, every env auto-reset; observations, rewards, dones
+    and every state field bit-equal (``tests/torch_presets.py``)."""
+    check_preset(world, behavior, backend, **kw)
 
 
 @pytest.mark.parametrize("overrides", [

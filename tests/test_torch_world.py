@@ -19,14 +19,18 @@ from crowdnav_tpu.envs import config as jcfg
 from crowdnav_tpu.envs import world as jworld
 from crowdnav_tpu_torch.envs import config as tcfg
 from crowdnav_tpu_torch.envs import world as tworld
-from torch_parity import assert_env_state_equal, env_state_to_torch, to_torch
+from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv as TCrowdEnv
+from torch_parity import (assert_env_state_equal, check_template,
+                          env_state_to_torch, jax_state, jax_state_keys,
+                          template_keys, to_torch)
 
 torch.set_num_threads(1)
 N = 32
 
 
 def jax_reset_draws(cfg, keys):
-    """The draws ``world.init_state`` makes from each key."""
+    """The draws ``world.init_state`` makes from each key, jitted as the
+    JAX package's resets are (one compilation, not one a primitive)."""
     P = max(cfg.n_peds, 1)
     f32 = jnp.float32
 
@@ -43,7 +47,7 @@ def jax_reset_draws(cfg, keys):
             phase=jax.random.randint(k_phase, (), 0,
                                      max(cfg.redraw_window_steps, 1),
                                      jnp.int32))
-    return {k: to_torch(v) for k, v in jax.vmap(one)(keys).items()}
+    return {k: to_torch(v) for k, v in jax.jit(jax.vmap(one))(keys).items()}
 
 
 def jax_crowd_draws(cfg, states):
@@ -74,20 +78,47 @@ PHYSICS_FIELDS = ("pos", "yaw", "lin_vel", "ang_vel", "prev_pos", "ped_pos",
                   "ped_vel", "step", "last_action_type")
 
 
-@pytest.mark.parametrize("behavior", ["crowd", "crossing", "static"])
-def test_world_step_matches_jax(behavior):
-    jc = jcfg.make_config("crowd_dense", behavior, jitter=1.0)
-    tc = tcfg.make_config("crowd_dense", behavior, jitter=1.0)
+# every behavior preset: each CrowdBehavior (STATIC, RANDOM, CROSSING,
+# TOWARDS, AHEAD) at each of its speeds, the direction tables of 4, 8, 12
+# and 20 pedestrians and the 20-table cycled over the 14 of crowd_dense
+WORLD_CASES = [("crowd_dense", b) for b in ("crowd", "crossing", "static")]
+WORLD_CASES += [
+    ("crowd_20", "crowd_highspeed"), ("test_4", "random"),
+    ("test_20", "random_fast"), ("test_20", "random_20"),
+    ("test_12", "crossing_fast"), ("test_20", "crossing_20"),
+    ("test_8", "towards"), ("crowd_dense", "towards_fast"),
+    ("test_20", "towards_20"), ("test_12", "ahead"),
+    ("test_4", "ahead_fast"), ("test_20", "ahead_20")]
+
+
+@pytest.mark.parametrize(
+    "world,behavior", WORLD_CASES,
+    ids=[b if w == "crowd_dense" and b in ("crowd", "crossing", "static")
+         else f"{w}-{b}" for w, b in WORLD_CASES])
+def test_world_step_matches_jax(world, behavior):
+    """``world_step`` under every behavior preset against the physics half
+    of the jitted, vmapped JAX env step, 32 envs x 8 steps (every fifth
+    env takes the STOP action) from the port's reset with the JAX
+    package's draws (its reset of the template's key held to the JAX
+    template first): the physics fields bit-equal on the rows that did
+    not auto-reset."""
+    jc = jcfg.make_config(world, behavior, jitter=1.0)
+    tc = tcfg.make_config(world, behavior, jitter=1.0)
     env = CrowdEnv(jc)
-    keys = jax.random.split(jax.random.PRNGKey(5), N)
-    js, _ = jax.jit(jax.vmap(env.reset))(keys)
+    tenv = TCrowdEnv(tc, device="cpu")
+    keys = template_keys(5, N)
+    draws = jax_reset_draws(jc, keys)
+    check_template(env, tenv, draws)
+    ts, _ = tenv.reset(N, draws={k: v[1:] for k, v in draws.items()})
+    js = jax_state(ts, jax_state_keys(keys[1:]))
     step = jax.jit(jax.vmap(env.step))
     rng = np.random.default_rng(0)
     for t in range(8):
         act = rng.uniform([0.0, -2.0], [0.22, 2.0], (N, 2)).astype(
             np.float32)
         act[::5] = 0.0                     # STOP actions too
-        draw = jax_crowd_draws(jc, js) if behavior == "crowd" else None
+        draw = jax_crowd_draws(jc, js) \
+            if jc.behavior == jcfg.CrowdBehavior.RANDOM else None
         got = tworld.world_step(tc, env_state_to_torch(js),
                                 torch.from_numpy(act), vel_draw=draw)
         live = ~np.asarray(js.done)        # rows not auto-reset this step

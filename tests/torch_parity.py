@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from crowdnav_tpu.envs import world as jworld
 from crowdnav_tpu.envs.world import TrackState as JTrackState
 from crowdnav_tpu.ops import risk as jrisk
 from crowdnav_tpu_torch.envs import world as tworld
@@ -35,6 +36,25 @@ def env_state_to_torch(js) -> tworld.EnvState:
     return tworld.EnvState(**kw)
 
 
+def jax_state(ts, keys):
+    """The port's batched state as a JAX ``EnvState`` carrying ``keys``."""
+    kw = {}
+    for f in dataclasses.fields(jworld.EnvState):
+        if f.name == "key":
+            kw["key"] = keys
+        elif f.name == "tracks":
+            kw["tracks"] = JTrackState(**{
+                g.name: jnp.asarray(getattr(ts.tracks, g.name).numpy())
+                for g in dataclasses.fields(jworld.TrackState)})
+        else:
+            kw[f.name] = jnp.asarray(getattr(ts, f.name).numpy())
+    return jworld.EnvState(**kw)
+
+
+# the key ``world.init_state`` leaves in a randomized reset's state
+jax_state_keys = jax.jit(jax.vmap(lambda k: jax.random.split(k, 6)[5]))
+
+
 def assert_env_state_equal(ts: tworld.EnvState, js, msg=""):
     """Every field of the port's state bit-equal to the JAX state's."""
     for f in dataclasses.fields(tworld.EnvState):
@@ -48,6 +68,24 @@ def assert_env_state_equal(ts: tworld.EnvState, js, msg=""):
             np.testing.assert_array_equal(
                 getattr(ts, f.name).numpy(), np.asarray(getattr(js, f.name)),
                 err_msg=f"{msg} {f.name}")
+
+
+def template_keys(seed: int, n: int):
+    """``PRNGKey(0)`` (the key of the JAX env's reset template), then
+    ``n`` keys split from ``seed``."""
+    return jnp.concatenate([jax.random.PRNGKey(0)[None],
+                            jax.random.split(jax.random.PRNGKey(seed), n)])
+
+
+def check_template(jenv, tenv, draws):
+    """The port's reset with the draws of the template's key (row 0 of
+    ``draws``) bit-equal to the JAX env's reset template; returns it."""
+    ts, tobs = tenv.reset(1, draws={k: v[:1] for k, v in draws.items()})
+    st, obs = jenv._template
+    np.testing.assert_array_equal(tobs.numpy()[0], obs, err_msg="template")
+    assert_env_state_equal(ts, jax.tree.map(lambda a: a[None], st),
+                           "template")
+    return ts, tobs
 
 
 def random_population(cfg, seed: int, n: int):
