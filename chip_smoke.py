@@ -7,19 +7,30 @@ Phases, each printing one JSON line:
 
 1. ``device``: the card, its power limit, TF32 switched off;
 2. ``build``: the one ``nvcc`` call that builds every kernel of the port,
-   and beside it, started together, the build of the kernels' first designs
-   (``scripts/first_design_kernels/``), kept as a timing baseline;
+   and beside it, started together, the builds of the kernels' first
+   designs (``scripts/first_design_kernels/``) and second designs
+   (``scripts/second_design_kernels/``: the raycast without its cull by
+   reach, the strict tracker with a second walk for its slots), kept as
+   timing baselines;
 3. ``raycast``: the raycast kernel (its XLA form) against its plain
    version on the card, at the shapes of every path (14 pedestrians; the
    placeholder of an empty room; 6 on ``crowd_sparse``; 20 in the 5 m room
-   of ``test_20``), then its device time at each;
+   of ``test_20``), then its device time at each, beside its first and
+   second designs';
 4. ``track_cp_topk``: the tracker -> CP -> top-K kernel (its XLA form)
    against its plain version, on random populations and edge cases (also
    at K = 1 and at sizes the kernel takes at run time), then its device
    time;
-5. ``kernel_forms``: the raycast's Pallas form and the tracker kernel's
+5. ``forms_rollout``: ``CrowdEnv.step_batch`` at 16,384 envs x 64 steps
+   of ``crowd_dense``/``crowd`` with no learner, under both kernels'
+   Pallas forms and under the strict quirks: one launch of each form a
+   step, the env's ms a step;
+   ``kernel_forms``: the raycast's Pallas form and the tracker kernel's
    Pallas and strict forms against their plain versions, bit for bit, at
-   1,024 and 16,384 envs and the other shapes, then their device times;
+   1,024 and 16,384 envs and the other shapes, both raycast forms on
+   pedestrians at the cull's boundary, then their device times, the
+   redesigned forms' beside their second designs', also on the state the
+   rollouts left;
 6. ``libm``: the C-library trig kernel (``cos``, ``sin``, ``atan2`` as the
    host's C library computes them) against the library on the CPU at the
    step's shapes, and its device time;
@@ -115,7 +126,14 @@ learners' runs, ``launches_sharded_rank<r>``, ``launches_multihost_nccl``,
 paths (the last three with their resets' launches), ``launches_native``
 and ``launches_oracle`` the host simulator's comparison and the oracle's
 scenarios, ``launches_step_parity`` and ``launches_scenario_parity`` the
-card's side of the two card-against-CPU phases.
+card's side of the two card-against-CPU phases, ``launches_rollout_pallas``
+and ``launches_rollout_strict`` the ``forms_rollout`` phase (the path of
+the raycast's Pallas form and of the tracker's strict form).
+``second_design_device_ms_<shape>`` is the second design's device time on
+the same inputs in the same run. A raycast form's ``bound_ms`` counts the
+pair tests of the pedestrians within its cull's reach only, the work the
+function needs; ``bound_ms_all_pairs`` counts every pair, as the shares
+before the cull did.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; without a CUDA device it fails at once.
@@ -153,6 +171,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FIRST_DESIGN_SIGNATURES = {
     "crowdnav_raycast": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_P],
     "crowdnav_track_cp_topk": [_P] * 24 + [_I] * 4 + [_F] * 8 + [_P],
+}
+# the kernels as they were before the raycast's cull by reach and the
+# strict top-K's closed-form slot, kept unchanged as the yardstick of
+# those redesigns (built against the package's libm_f32.cuh, which the
+# redesigns left as it was), and their C interface
+SECOND_DESIGN = os.path.join(ROOT, "scripts", "second_design_kernels")
+SECOND_DESIGN_SIGNATURES = {
+    "crowdnav_raycast": [_P] * 7 + [_I] * 7 + [_F] * 4 + [_P],
+    "crowdnav_raycast_pallas": [_P] * 4 + [_I] * 7 + [_F] * 5 + [_P],
+    "crowdnav_track_cp_topk": [_P] + [_I] * 6 + [_F] * 8 + [_I, _P],
 }
 TIMING = ("device-only: bursts of wrapper calls queued behind "
           "torch.cuda._sleep, median of 3 bursts, inputs rotated over "
@@ -220,23 +248,30 @@ def phase_device(torch):
 
 
 def phase_build():
-    """The port's library and the first designs' library, their two
-    ``nvcc`` calls started together; returns the first designs' library."""
+    """The port's library and the earlier designs' two libraries, their
+    three ``nvcc`` calls started together; returns the first and second
+    designs' libraries."""
     from crowdnav_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         first = pool.submit(build.compile_library, FIRST_DESIGN)
+        second = pool.submit(build.compile_library, SECOND_DESIGN,
+                             (build.CSRC,))
         build.library()
         first_path, first_s = first.result()
+        second_path, second_s = second.result()
     first_lib = build.load(first_path, FIRST_DESIGN_SIGNATURES)
+    second_lib = build.load(second_path, SECOND_DESIGN_SIGNATURES)
     emit({"phase": "build", "nvcc_s": build.build_seconds,
-          "first_design_nvcc_s": first_s,
+          "first_design_nvcc_s": first_s, "second_design_nvcc_s": second_s,
           "load_s": round(time.perf_counter() - t0, 3),
           "sources": [os.path.relpath(s, ROOT) for s in build.sources()],
           "first_design_sources": [os.path.relpath(s, ROOT) for s in
                                    build.sources(FIRST_DESIGN)],
+          "second_design_sources": [os.path.relpath(s, ROOT) for s in
+                                    build.sources(SECOND_DESIGN)],
           "flags": build.NVCC_FLAGS})
-    return first_lib
+    return first_lib, second_lib
 
 
 def _stream(torch, t):
@@ -271,15 +306,71 @@ def first_design_track(torch, lib, cfg, *tensors):
     return outs[:7], outs[7:]
 
 
-def _timings(kernel, first, plain, args, plain_args, nbytes):
-    """Device ms of the kernel and its first design on copies of ``args``,
-    and of the plain version on ``plain_args``."""
+def second_design_raycast(torch, lib, pos, cy, sy, ca, sa, peds, half, r2,
+                          min_range, max_range, beams_per_thread=None):
+    """The raycast's XLA form without the cull by reach (its launch
+    geometry, its shared memory without the reach masks)."""
+    from crowdnav_tpu_torch.kernels import build, launch
+    ptrs, out = build.raycast_buffers(pos, cy, sy, ca, sa, peds)
+    n, b = out.shape
+    p = peds.shape[1]
+    geo = launch.raycast_launch(n, b, p, beams_per_thread=beams_per_thread)
+    code = lib.crowdnav_raycast(
+        *ptrs, out.data_ptr(), n, b, p, geo.grid, geo.threads,
+        geo.beams_per_thread, geo.envs_per_block * (16 + 12 * p), half, r2,
+        min_range, max_range, _stream(torch, pos))
+    if code:
+        raise RuntimeError(f"second-design raycast: CUDA error {code}")
+    return out
+
+
+def second_design_raycast_pallas(torch, lib, pos, yaw, peds, n_beams, half,
+                                 r2, min_range, max_range,
+                                 beams_per_thread=None):
+    """The raycast's Pallas form without the cull by reach."""
+    from crowdnav_tpu_torch.kernels import build, launch
+    from crowdnav_tpu_torch.ops.lidar import DEG
+    ptrs, out = build.raycast_pallas_buffers(pos, yaw, peds, n_beams)
+    n, p = pos.shape[0], peds.shape[1]
+    geo = launch.raycast_launch(n, n_beams, p,
+                                beams_per_thread=beams_per_thread)
+    code = lib.crowdnav_raycast_pallas(
+        *ptrs, out.data_ptr(), n, n_beams, p, geo.grid, geo.threads,
+        geo.beams_per_thread, geo.envs_per_block * (16 + 12 * p), half, r2,
+        min_range, max_range, DEG, _stream(torch, pos))
+    if code:
+        raise RuntimeError(f"second-design raycast_pallas: CUDA error {code}")
+    return out
+
+
+def second_design_track(torch, lib, cfg, *tensors):
+    """The tracker kernel's strict form with its second walk over the
+    tracks for its slots."""
+    from crowdnav_tpu_torch.kernels import build, launch
+    ptrs, outs, consts = build.track_cp_topk_buffers(cfg, *tensors)
+    n, S = tensors[0].shape
+    geo = launch.track_cp_topk_launch(n)
+    addrs = (ctypes.c_void_p * 24)(*ptrs, *(o.data_ptr() for o in outs))
+    code = lib.crowdnav_track_cp_topk(
+        addrs, n, S, tensors[4].shape[1], cfg.k_obstacles, geo.grid,
+        geo.envs_per_block, *consts, build.TRACK_FORMS["strict"],
+        _stream(torch, tensors[0]))
+    if code:
+        raise RuntimeError(f"second-design tracker: CUDA error {code}")
+    return outs[:7], outs[7:]
+
+
+def _timings(kernel, plain, args, plain_args, nbytes, **designs):
+    """Device ms of the kernel and of each earlier design in ``designs``
+    (``<name>_device_ms``) on copies of ``args``, and of the plain version
+    on ``plain_args``."""
     from crowdnav_tpu_torch.kernels import timing
     sets = timing.clone_args(args, timing.copies_for(nbytes))
-    return {"device_ms": timing.device_ms(kernel, sets, reps=100),
-            "first_design_device_ms": timing.device_ms(first, sets,
-                                                       reps=100),
-            "plain_ms": timing.stream_ms(plain, plain_args)}
+    out = {"device_ms": timing.device_ms(kernel, sets, reps=100),
+           "plain_ms": timing.stream_ms(plain, plain_args)}
+    for name, fn in designs.items():
+        out[f"{name}_device_ms"] = timing.device_ms(fn, sets, reps=100)
+    return out
 
 
 def _max_abs(a, b, torch):
@@ -290,9 +381,9 @@ def _max_abs(a, b, torch):
     return float(torch.where(both_inf, 0.0, d).max()) if d.numel() else 0.0
 
 
-def phase_raycast(torch, dev, first_lib):
+def phase_raycast(torch, dev, first_lib, second_lib):
     from crowdnav_tpu_torch.envs.config import make_config
-    from crowdnav_tpu_torch.kernels import build, roofline
+    from crowdnav_tpu_torch.kernels import build
     from crowdnav_tpu_torch.ops import lidar
     from crowdnav_tpu_torch.utils import numerics as nm
     cfg = make_config("crowd_dense", "crowd")
@@ -355,6 +446,9 @@ def phase_raycast(torch, dev, first_lib):
     def first(*a):
         return first_design_raycast(torch, first_lib, *a)
 
+    def second(*a):
+        return second_design_raycast(torch, second_lib, *a)
+
     shapes = {}
     for key, case in ((EVAL_ENVS, "n1024_p14"), (N_BIG, "n16384_p14"),
                       ("n512_p6", "n512_p6"), ("n16384_p6", "n16384_p6"),
@@ -362,16 +456,15 @@ def phase_raycast(torch, dev, first_lib):
                        f"n{EVAL_20_ENVS}_p20_room5"),
                       ("n16384_p20_room5", "n16384_p20_room5")):
         args = plain_args(*cases[case], case_cfg[case])
-        if not torch.equal(build.raycast(*args), first(*args)):
-            raise AssertionError(f"raycast {case}: the first design differs")
-        n, p = cases[case][2].shape[:2]
-        hits = roofline.raycast_hits(*args[:6], args[7])
-        nbytes, ops = roofline.raycast_work(n, cfg.n_scans, p, hits)
-        bound, bound_by = roofline.bound_ms(nbytes, ops)
-        shapes[key] = dict(_timings(build.raycast, first,
-                                    lidar.raycast_plain, args, args, nbytes),
-                           bound_ms=bound, bound_by=bound_by, bytes=nbytes,
-                           ops=ops, hits=hits)
+        got = build.raycast(*args)
+        for design, fn in (("first", first), ("second", second)):
+            if not torch.equal(got, fn(*args)):
+                raise AssertionError(f"raycast {case}: the {design} design "
+                                     f"differs")
+        work = _raycast_work(args, pallas=False)
+        shapes[key] = dict(_timings(build.raycast, lidar.raycast_plain, args,
+                                    args, work["bytes"], first_design=first,
+                                    second_design=second), **work)
     emit({"phase": "raycast", "cases": result, "timing": TIMING,
           "shapes": shapes})
     return {"max_abs": max(r["max_abs_diff"] for r in result.values()),
@@ -416,10 +509,15 @@ def _edge_population(torch, cfg, dev):
     table: 0 nothing; 1 all tracks valid, no segments; 2 segments only
     (mass insertion); 3 identical segments (IOU tie); 4 twelve tracks on
     one segment stack (CP ties); 5 every slot matched, obstacles left
-    over."""
+    over. Then the strict top-K's tie cases, each track on a segment of
+    its own distance with the robot still, so that its CP is the distance
+    CP (0 beyond the lidar's range): 6 every track valid, all CPs equal;
+    7 K tracks, all CPs equal; 8 a tie group across rank K above lower
+    distinct CPs; 9 more zero CPs (-0 scores) than K; 10 at most K
+    tracks, zeros and ties."""
     from crowdnav_tpu_torch.envs.world import TrackState
     from crowdnav_tpu_torch.ops.risk import Segments
-    S, T, n = cfg.max_segments, cfg.max_tracks, 6
+    S, T, K, n = cfg.max_segments, cfg.max_tracks, cfg.k_obstacles, 11
     z = lambda *s: torch.zeros(s, device=dev)
     seg_valid = torch.zeros((n, S), dtype=torch.bool, device=dev)
     seg_valid[2, :10] = True
@@ -431,19 +529,35 @@ def _edge_population(torch, cfg, dev):
     cpos[4, :12] = torch.tensor([0.3, 0.2], device=dev)
     cpos[5] = torch.stack([torch.linspace(-1.2, 1.2, S, device=dev),
                            torch.full((S,), 0.4, device=dev)], -1)
-    segs = Segments(valid=seg_valid, is_obstacle=seg_valid,
-                    confirmed=seg_valid, center_pos=cpos,
-                    center_dist=torch.full((n, S), 0.3, device=dev),
+    cdist = torch.full((n, S), 0.3, device=dev)
+    # the tie cases: segment s at (x_s, 0.8), track s on it
+    row = torch.stack([torch.linspace(-1.2, 1.2, S, device=dev),
+                       torch.full((S,), 0.8, device=dev)], -1)
+    ties = {6: [0.3] * T, 7: [0.3] * K,
+            8: [0.55, 0.5, 0.45, 0.42] + [0.3] * 6 + [0.1, 0.15, 0.2],
+            9: [0.7] * (K + 2) + [0.3] * 3,
+            10: [0.7, 0.7, 0.3, 0.3, 0.2][:K]}
+    for e, dists in ties.items():
+        k = min(len(dists), T)
+        seg_valid[e, :k] = True
+        cpos[e] = row
+        cdist[e, :k] = torch.tensor(dists[:k], device=dev)
+    obstacle = seg_valid.clone()
+    obstacle[6:] = False          # no insertion: the valid tracks are given
+    segs = Segments(valid=seg_valid, is_obstacle=obstacle,
+                    confirmed=seg_valid, center_pos=cpos, center_dist=cdist,
                     count=seg_valid.to(torch.int32) * 5)
     t_valid = torch.zeros((n, T), dtype=torch.bool, device=dev)
     t_valid[1] = True
     t_valid[3, 0] = True
     t_valid[4, :12] = True
     t_valid[5] = True
+    t_valid[6:, :] = seg_valid[6:, :T]
     tpos = z(n, T, 2)
     tpos[3, 0] = 0.5
     tpos[4, :12] = torch.tensor([0.31, 0.2], device=dev)
     tpos[5] = cpos[5, :T] + 0.01
+    tpos[6:] = row[:T]
     tracks = TrackState(valid=t_valid, pos=tpos, prev_pos=z(n, T, 2),
                         has_prev=t_valid.clone(),
                         dist=torch.full((n, T), 0.4, device=dev),
@@ -451,6 +565,7 @@ def _edge_population(torch, cfg, dev):
                         vel=z(n, T, 2))
     pos = torch.tensor([[0.1, -0.1]], device=dev).repeat(n, 1)
     prev = torch.tensor([[0.08, -0.12]], device=dev).repeat(n, 1)
+    prev[6:] = pos[6:]
     return segs, tracks, pos, prev, torch.ones(n, dtype=torch.bool,
                                                 device=dev)
 
@@ -532,8 +647,8 @@ def phase_track(torch, dev, first_lib):
                                  f"differs")
         nbytes, ops = roofline.track_cp_topk_work(n, S, T, K)
         bound, bound_by = roofline.bound_ms(nbytes, ops)
-        shapes[n] = dict(_timings(build.track_cp_topk, first, plain, args,
-                                  cases[case], nbytes),
+        shapes[n] = dict(_timings(build.track_cp_topk, plain, args,
+                                  cases[case], nbytes, first_design=first),
                          bound_ms=bound, bound_by=bound_by, bytes=nbytes,
                          ops=ops)
     emit({"phase": "track_cp_topk", "cases": result, "timing": TIMING,
@@ -565,63 +680,212 @@ def _moving_population(torch, cfg, n, dev, seed):
     return segs, tracks, pos, prev, cc
 
 
-def phase_kernel_forms(torch, dev):
-    """The kernels' Pallas and strict forms against their plain versions on the
-    card, bit for bit: the raycast's Pallas form (P = 14, the placeholder,
-    P = 6, P = 20 in the 5 m room) and the tracker kernel's Pallas and
-    strict forms (random, moving and edge populations, K = 1 and sizes
-    taken at run time), at 1,024 and 16,384 envs; then each form's device
-    time, plain time and bound at the main path's shapes."""
+def _reach_population(torch, cfg, n, p, dev, seed):
+    """``n`` poses in ``cfg``'s room and ``p`` pedestrians each at the
+    raycast's cull boundary (as ``tests/test_torch_raycast_cull.py``): four
+    in five at the reach ``max_range + r`` or at the kernel's threshold
+    (``launch.raycast_reach2``), a few ulp and 1 mm either side, or inside
+    the robot's circle, along a beam's direction, half a beam off it or in
+    between; the rest uniform in the room."""
+    from crowdnav_tpu_torch.kernels import launch
+    from crowdnav_tpu_torch.utils import numerics as nm
+    rng = np.random.default_rng(seed)
+    h = cfg.room_half_inner - cfg.robot_radius
+    pos = rng.uniform(-h, h, (n, 2))
+    yaw = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    peds = rng.uniform(-h, h, (n, p, 2))
+    r2, max_range = nm.f32(cfg.ped_radius ** 2), nm.f32(cfg.max_scan_range)
+    edge = max_range + math.sqrt(r2)
+    reach = math.sqrt(launch.raycast_reach2(r2, max_range))
+    ulp = float(np.spacing(np.float32(edge)))
+    dists = np.array(
+        [edge + k * ulp for k in (-4, -2, -1, 0, 1, 2, 3, 4, 6, 8, 16)]
+        + [reach + k * ulp for k in (-4, -2, -1, 0, 1, 2, 4)]
+        + [edge - 1e-3, edge + 1e-3, reach - 1e-3, reach + 1e-3,
+           0.5 * cfg.ped_radius])
+    d = dists[rng.integers(0, len(dists), (n, p))]
+    off = np.where(rng.uniform(size=(n, p)) < 0.5, 0.0,
+                   rng.choice([0.5, -0.25, 0.25], (n, p)))
+    a = yaw[:, None].astype(np.float64) - (
+        rng.integers(0, cfg.n_scans, (n, p)) + off) * (math.pi / 180.0)
+    placed = pos[:, None, :] + d[..., None] * np.stack([np.cos(a),
+                                                        np.sin(a)], -1)
+    keep = rng.uniform(size=(n, p, 1)) < 0.8
+    peds = np.where(keep, placed, peds)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+    return t(pos), t(yaw), t(peds)
+
+
+def _raycast_work(args, pallas):
+    """The work of one raycast form on ``args`` (its wrapper's arguments)
+    and its bound: ``bound_ms`` counts the pair tests and hits of the
+    pedestrians in reach only (``kernels/roofline.py``), the work the
+    function needs since its cull by reach; ``bound_ms_all_pairs`` counts
+    them for every pedestrian, the count before the cull (the earlier
+    designs' shares)."""
+    from crowdnav_tpu_torch.kernels import launch, roofline
+    if pallas:
+        pos, yaw, peds, b, _, r2, _, max_range = args
+
+        def hits(reach2=None):
+            return roofline.raycast_pallas_hits(pos, yaw, peds, b, r2,
+                                                reach2)
+
+        def work(h, in_reach=None):
+            nbytes, ops32, ops64 = roofline.raycast_pallas_work(
+                n, b, p, h, in_reach)
+            return ({"bytes": nbytes, "f32_ops": ops32, "f64_ops": ops64},
+                    roofline.mixed_bound_ms(nbytes, ops32, ops64))
+    else:
+        pos, peds, r2, max_range = args[0], args[5], args[7], args[9]
+        b = args[3].shape[0]
+
+        def hits(reach2=None):
+            return roofline.raycast_hits(*args[:6], r2, reach2)
+
+        def work(h, in_reach=None):
+            nbytes, ops = roofline.raycast_work(n, b, p, h, in_reach)
+            return ({"bytes": nbytes, "ops": ops},
+                    roofline.bound_ms(nbytes, ops))
+    n, p = peds.shape[:2]
+    reach2 = launch.raycast_reach2(r2, max_range)
+    in_reach = roofline.raycast_in_reach(pos, peds, reach2)
+    culled_hits = hits(reach2)
+    out, (bound, by) = work(culled_hits, in_reach)
+    all_hits = hits()
+    counts, (bound_all, by_all) = work(all_hits)
+    out.update(bound_ms=bound, bound_by=by, hits=culled_hits,
+               peds_in_reach=in_reach, bound_ms_all_pairs=bound_all,
+               bound_by_all_pairs=by_all, hits_all_pairs=all_hits,
+               **{f"{k}_all_pairs": v for k, v in counts.items()
+                  if k != "bytes"})
+    return out
+
+
+def _raycast_shape(torch, kernel, plain, args, pallas, **designs):
+    """Device, plain and earlier designs' ms of one raycast form on
+    ``args``, with its work and bound (:func:`_raycast_work`)."""
+    work = _raycast_work(args, pallas)
+    return dict(_timings(kernel, plain, args, args, work["bytes"],
+                         **designs), library_ms=None, **work)
+
+
+def phase_kernel_forms(torch, dev, second_lib, rollouts):
+    """The kernels' Pallas and strict forms against their plain versions on
+    the card, bit for bit: the raycast's Pallas form (P = 14, the
+    placeholder, P = 6, P = 20 in the 5 m room) and the tracker kernel's
+    Pallas and strict forms (random, moving and edge populations, K = 1 and
+    sizes taken at run time), at 1,024 and 16,384 envs; both raycast forms
+    on pedestrians at the cull's boundary (``_reach_population``: P = 6,
+    14, 20, the 0.6 m lidar in the 3 m room, the 3.5 m one in the 5 m
+    room). Then each form's device time, plain time and bound at the main
+    path's shapes, and beside the redesigned forms (the raycast's two
+    forms, the strict tracker) the device time of their second design
+    (``scripts/second_design_kernels/``) on the same inputs: on uniform
+    populations and on the state that ``rollouts``
+    (:func:`phase_forms_rollout`) left, the positions the env itself
+    produces."""
+    from crowdnav_tpu_torch.envs import crowd_env
     from crowdnav_tpu_torch.envs.config import make_config
-    from crowdnav_tpu_torch.kernels import build, roofline, timing
+    from crowdnav_tpu_torch.kernels import build, roofline
     from crowdnav_tpu_torch.ops import lidar, risk
     from crowdnav_tpu_torch.ops.risk_kernel import track_cp_topk_batch
+    from crowdnav_tpu_torch.utils import numerics as nm
     cfg = make_config("crowd_dense", "crowd")
     big = make_config("test_20", "random_20")
+    waffle = make_config("test_12", "random", robot="waffle")
     g = torch.Generator(device=dev).manual_seed(21)
 
     def u(shape, lo, hi):
         return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
 
+    def second_pallas(*a):
+        return second_design_raycast_pallas(torch, second_lib, *a)
+
+    def second_xla(*a):
+        return second_design_raycast(torch, second_lib, *a)
+
+    def pallas_args(c, pos, yaw, peds):
+        return (pos, yaw, peds, c.n_scans,
+                *lidar._consts(c.ped_radius, c.room_half_inner,
+                               c.max_scan_range, c.lidar_min_range))
+
+    def xla_args(c, pos, yaw, peds):
+        ca, sa = lidar.beam_tables(c.n_scans, dev)
+        return (pos, nm.cos(yaw), nm.sin(yaw), ca, sa, peds,
+                *lidar._consts(c.ped_radius, c.room_half_inner,
+                               c.max_scan_range, c.lidar_min_range))
+
+    def check(name, got, ref):
+        torch.cuda.synchronize()
+        bad = _n_differ(torch, got, ref)
+        if bad:
+            raise AssertionError(f"{name}: {bad} elements differ from the "
+                                 f"plain version")
+        return bad
+
+    def pallas_shape(c, args, name):
+        ref = lidar.raycast_pallas_plain(*args)
+        check(f"raycast_pallas {name}", build.raycast_pallas(*args), ref)
+        check(f"raycast_pallas {name}, second design", second_pallas(*args),
+              ref)
+        return _raycast_shape(torch, build.raycast_pallas,
+                              lidar.raycast_pallas_plain, args, True,
+                              second_design=second_pallas)
+
+    def xla_shape(c, args, name):
+        ref = lidar.raycast_plain(*args)
+        check(f"raycast {name}", build.raycast(*args), ref)
+        check(f"raycast {name}, second design", second_xla(*args), ref)
+        return _raycast_shape(torch, build.raycast, lidar.raycast_plain,
+                              args, False, second_design=second_xla)
+
     out = {"raycast_pallas": {"cases": {}, "shapes": {}},
+           "raycast_xla": {"cases": {}, "shapes": {}},
            "track_cp_topk_pallas": {"cases": {}, "shapes": {}},
            "track_cp_topk_strict": {"cases": {}, "shapes": {}}}
-    rc = out["raycast_pallas"]
+    rc, rx = out["raycast_pallas"], out["raycast_xla"]
     for n in SHAPES:
         for p, c in ((14, cfg), (0, cfg), (6, cfg), (20, big)):
             h = c.room_half_inner - c.robot_radius
             pos, yaw = u((n, 2), -h, h), u((n,), -math.pi, math.pi)
             peds = torch.full((n, 1, 2), 1e3, device=dev) if p == 0 \
                 else u((n, p, 2), -h, h)
-            consts = lidar._consts(c.ped_radius, c.room_half_inner,
-                                   c.max_scan_range, c.lidar_min_range)
-            args = (pos, yaw, peds, c.n_scans, *consts)
-            got = build.raycast_pallas(*args)
-            ref = lidar.raycast_pallas_plain(*args)
-            torch.cuda.synchronize()
+            args = pallas_args(c, pos, yaw, peds)
             name = f"n{n}_p{p}" + ("_room5" if c is big else "")
-            bad = _n_differ(torch, got, ref)
-            rc["cases"][name] = {"differing": bad}
-            if bad:
-                raise AssertionError(f"raycast_pallas {name}: {bad} "
-                                     f"elements differ from the plain "
-                                     f"version")
+            ref = lidar.raycast_pallas_plain(*args)
+            rc["cases"][name] = {"differing": check(
+                f"raycast_pallas {name}", build.raycast_pallas(*args), ref)}
+            check(f"raycast_pallas {name}, second design",
+                  second_pallas(*args), ref)
             if p in (14, 20) or (p == 6 and n == N_BIG):
-                hits = roofline.raycast_pallas_hits(pos, yaw, peds,
-                                                    c.n_scans, consts[1])
-                nbytes, ops32, ops64 = roofline.raycast_pallas_work(
-                    n, c.n_scans, p, hits)
-                bound, by = roofline.mixed_bound_ms(nbytes, ops32, ops64)
-                sets = timing.clone_args(args, timing.copies_for(nbytes))
-                key = n if p == 14 else name
-                rc["shapes"][key] = {
-                    "device_ms": timing.device_ms(build.raycast_pallas, sets,
-                                                  reps=100),
-                    "plain_ms": timing.stream_ms(lidar.raycast_pallas_plain,
-                                                 args),
-                    "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-                    "f32_ops": ops32, "f64_ops": ops64, "hits": hits,
-                    "library_ms": None}
+                rc["shapes"][n if p == 14 else name] = pallas_shape(c, args,
+                                                                    name)
+    # pedestrians at the cull's boundary, both forms
+    for p, c, room in ((6, cfg, "room3"), (14, cfg, "room3"),
+                       (20, big, "room5"), (20, waffle, "room5_waffle")):
+        pop = _reach_population(torch, c, N_BIG, p, dev, seed=60 + p)
+        name = f"reach_n{N_BIG}_p{p}_{room}"
+        args = pallas_args(c, *pop)
+        rc["cases"][name] = {"differing": check(
+            f"raycast_pallas {name}", build.raycast_pallas(*args),
+            lidar.raycast_pallas_plain(*args))}
+        args = xla_args(c, *pop)
+        rx["cases"][name] = {"differing": check(
+            f"raycast {name}", build.raycast(*args),
+            lidar.raycast_plain(*args))}
+    # the state the env's own rollouts left
+    for form, res, shape in (("rollout_pallas", rc, pallas_shape),
+                             ("rollout_strict", rx, xla_shape)):
+        c = rollouts[form]["cfg"]
+        st = rollouts[form]["state"]
+        args = (pallas_args if res is rc else xla_args)(c, st.pos, st.yaw,
+                                                          st.ped_pos)
+        key = f"state_n{N_BIG}_p{c.n_peds}"
+        res["shapes"][key] = shape(c, args, key)
+
     S, T, K = cfg.max_segments, cfg.max_tracks, cfg.k_obstacles
     for form, over in (("pallas", {"risk_backend": "pallas"}),
                        ("strict", {"strict_quirks": True})):
@@ -640,7 +904,8 @@ def phase_kernel_forms(torch, dev):
             oc = dataclasses.replace(fc, **other)
             cases[f"random_n{N_ODD}_{name}"] = _random_population(
                 torch, oc, N_ODD, dev, 50)
-            cfgs[f"random_n{N_ODD}_{name}"] = oc
+            cases[f"edges_{name}"] = _edge_population(torch, oc, dev)
+            cfgs[f"random_n{N_ODD}_{name}"] = cfgs[f"edges_{name}"] = oc
         for name, args in cases.items():
             before = track_cp_topk_batch.form_launches[form]
             got = _flatten(track_cp_topk_batch(cfgs[name], *args))
@@ -655,29 +920,120 @@ def phase_kernel_forms(torch, dev):
                 raise AssertionError(f"track_cp_topk_{form} {name}: {bad} "
                                      f"elements differ from the plain "
                                      f"version")
-        for n in SHAPES:
-            segs, tracks, pos, prev, cc = cases[f"moving_n{n}"]
+        timed = {n: cases[f"moving_n{n}"] for n in SHAPES}
+        if form == "strict":
+            # the tracker's inputs of the step after the strict rollout
+            c, st = rollouts["rollout_strict"]["cfg"], \
+                rollouts["rollout_strict"]["state"]
+            scans, points = crowd_env._sense(c, st)
+            timed[f"state_n{N_BIG}"] = (
+                risk.segment_scans(c, scans, points), st.tracks, st.pos,
+                st.prev_pos, torch.ones(N_BIG, dtype=torch.bool, device=dev))
+        for key, (segs, tracks, pos, prev, cc) in timed.items():
+            n = pos.shape[0]
             kargs = (fc, segs.confirmed, segs.is_obstacle, segs.center_pos,
                      segs.center_dist, tracks.valid, tracks.pos,
                      tracks.prev_pos, tracks.dist, tracks.speed, tracks.vel,
                      pos, prev, cc)
             nbytes, ops = roofline.track_cp_topk_work(n, S, T, K, form)
             bound, by = roofline.bound_ms(nbytes, ops)
-            sets = timing.clone_args(kargs, timing.copies_for(nbytes))
 
             def kernel(*a, form=form):
                 return build.track_cp_topk(*a, form=form)
 
             def plain(*a, form=form, fc=fc):
                 return risk.track_cp_topk(fc, *a, form=form)
-            res["shapes"][n] = {
-                "device_ms": timing.device_ms(kernel, sets, reps=100),
-                "plain_ms": timing.stream_ms(plain, cases[f"moving_n{n}"]),
-                "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-                "ops": ops, "library_ms": None}
+            designs = {}
+            if form == "strict":
+                def second(*a):
+                    return second_design_track(torch, second_lib, *a)
+                new, old = kernel(*kargs), second(*kargs)
+                if _same(torch, [*new[0], *new[1]], [*old[0], *old[1]]):
+                    raise AssertionError(f"track_cp_topk_strict {key}: the "
+                                         f"second design differs")
+                designs["second_design"] = second
+            res["shapes"][n if isinstance(key, int) else key] = dict(
+                _timings(kernel, plain, kargs, (segs, tracks, pos, prev, cc),
+                         nbytes, **designs),
+                bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops,
+                library_ms=None)
     for r in out.values():
         r["max_abs"] = 0.0
     emit({"phase": "kernel_forms", "timing": TIMING, **out})
+    return out
+
+
+ROLLOUT_STEPS = 64
+# the env of bench.py --with-pallas-lidar, and the strict quirks
+ROLLOUT_FORMS = {"rollout_pallas": dict(risk_backend="pallas",
+                                        lidar_backend="pallas"),
+                 "rollout_strict": dict(strict_quirks=True)}
+ROLLOUT_KERNELS = {"rollout_pallas": ("raycast_pallas",
+                                      "track_cp_topk_pallas"),
+                   "rollout_strict": ("raycast", "track_cp_topk_strict")}
+
+
+def phase_forms_rollout(torch, dev, forms=tuple(ROLLOUT_FORMS)):
+    """The redesigned forms' path at full width, with no learner:
+    ``CrowdEnv.step_batch`` on ``crowd_dense``/``crowd`` (jitter 1.0) at
+    16,384 envs x 64 steps of seeded uniform actions, under both kernels'
+    Pallas forms (the env of ``bench.py --with-pallas-lidar``) and under
+    the strict quirks. The launch counts are set to 0 after the reset and
+    read after the last step: each case's kernels launch once a step. The
+    env's ms a step: CUDA events around each ``step_batch`` (the host's
+    enqueue included, which sets the step's time), and the host clock over
+    the 64 steps. ``forms``: the cases to run, of ``ROLLOUT_FORMS``.
+    Returns each case's launches, steps, config and last state."""
+    from crowdnav_tpu_torch.envs.config import make_config
+    from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
+    out, report = {}, {}
+    lo = torch.tensor([0.0, -2.0], device=dev)
+    span = torch.tensor([0.22, 4.0], device=dev)
+    for name in forms:
+        over = ROLLOUT_FORMS[name]
+        cfg = make_config("crowd_dense", "crowd", jitter=1.0, **over)
+        env = CrowdEnv(cfg, device=dev, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        state, _ = env.reset(N_BIG, gen)
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(ROLLOUT_STEPS)]
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        for a, b in events:
+            act = torch.rand((N_BIG, 2), generator=gen, device=dev) * span \
+                + lo
+            a.record()
+            res = env.step_batch(state, act, gen=gen)
+            b.record()
+            state = res.state
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        finite = bool(torch.isfinite(res.obs).all()
+                      and torch.isfinite(res.reward).all())
+        ms = [a.elapsed_time(b) for a, b in events]
+        report[name] = {
+            "config": over, "envs": N_BIG, "steps": ROLLOUT_STEPS,
+            "env_ms_per_step_median": float(np.median(ms)),
+            "env_ms_per_step_mean": float(np.mean(ms)),
+            "env_ms_per_step_host_clock": wall * 1e3 / ROLLOUT_STEPS,
+            "obs_shape": list(res.obs.shape), "finite": finite,
+            "done_after_last_step": int(state.done.sum()),
+            "launches": launches}
+        out[name] = {"launches": launches, "steps": ROLLOUT_STEPS,
+                     "cfg": cfg, "state": state}
+        if not finite or tuple(res.obs.shape) != (N_BIG, cfg.state_dim_risk):
+            raise AssertionError(f"{name}: observation {tuple(res.obs.shape)}"
+                                 f", finite {finite}")
+        for kernel in ROLLOUT_KERNELS[name]:
+            if launches[kernel] != ROLLOUT_STEPS:
+                raise AssertionError(f"{name}: {kernel} launched "
+                                     f"{launches[kernel]} times in "
+                                     f"{ROLLOUT_STEPS} steps")
+    emit({"phase": "forms_rollout", "world": "crowd_dense/crowd, jitter 1.0",
+          **report})
     return out
 
 
@@ -2393,7 +2749,7 @@ KERNELS = (
     ("raycast_pallas", "crowdnav_tpu_torch/kernels/csrc/raycast.cu",
      "crowdnav_tpu/ops/lidar_pallas.py:32",
      "_raycast_kernel, launched by scan_batch_pallas (its own arithmetic, "
-     "lidar_backend='pallas')", "pallas_backends_noise"),
+     "lidar_backend='pallas')", "rollout_pallas"),
     ("track_cp_topk", "crowdnav_tpu_torch/kernels/csrc/track_cp_topk.cu",
      "crowdnav_tpu/ops/risk_pallas.py:61",
      "_kernel, launched by track_cp_topk_batch (the XLA chain's "
@@ -2408,7 +2764,7 @@ KERNELS = (
      "crowdnav_tpu/ops/risk_pallas.py:61",
      "_kernel's chain under strict_quirks (the XLA chain's strict first "
      "track speed and top-K, crowdnav_tpu/ops/risk.py:349,388)",
-     "strict_quirks"),
+     "rollout_strict"),
     ("libm_sincos", "crowdnav_tpu_torch/kernels/csrc/libm_trig.cu",
      "crowdnav_tpu/envs/world.py:196",
      "no TPU kernel: the C library's cosf/sinf that the reference's CPU "
@@ -2422,12 +2778,13 @@ KERNELS = (
 
 def kernel_line(smi, stats, paths, evaluate, train_agents, eval_agents):
     """One entry per kernel form: device time, bound, plain and library
-    times at 16,384 envs (and every measured shape); ``launches`` on the
-    path that runs the form (``launches_path`` names it: the bench cell's
-    training at full width with the Pallas tracker, the main
-    path; the default configuration's training; the forms' training
-    paths), and the launches on every other path: each training run, the
-    TD3 evaluation, DDPG's, SAC's and DQN's training and evaluation."""
+    times at 16,384 envs (and every measured shape, with the earlier
+    designs' times); ``launches`` on the path that runs the form
+    (``launches_path`` names it: the bench cell's training at full width
+    with the Pallas tracker, the main path; the default configuration's
+    training; the ``forms_rollout`` runs of the Pallas and strict forms),
+    and the launches on every other path: each training run, the TD3
+    evaluation, DDPG's, SAC's and DQN's training and evaluation."""
     kernels = []
     for name, src, replaces, what, path in KERNELS:
         st = stats[name]
@@ -2446,6 +2803,8 @@ def kernel_line(smi, stats, paths, evaluate, train_agents, eval_agents):
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"], "library_ms": lib,
             "card": smi, "timing": TIMING}
+        if "bound_ms_all_pairs" in big:
+            entry["bound_ms_all_pairs"] = big["bound_ms_all_pairs"]
         for other, r in paths.items():
             entry[f"launches_{other}"] = r["launches"][name]
         if lib is None:
@@ -2466,9 +2825,12 @@ def kernel_line(smi, stats, paths, evaluate, train_agents, eval_agents):
                 f"bound_ms_{n}": sh["bound_ms"],
                 f"bound_by_{n}": sh["bound_by"],
                 f"bound_share_{n}": sh["bound_ms"] / sh["device_ms"]})
-            if "first_design_device_ms" in sh:
-                entry[f"first_design_device_ms_{n}"] = \
-                    sh["first_design_device_ms"]
+            if "bound_ms_all_pairs" in sh:
+                entry[f"bound_ms_all_pairs_{n}"] = sh["bound_ms_all_pairs"]
+            for design in ("first_design", "second_design"):
+                if f"{design}_device_ms" in sh:
+                    entry[f"{design}_device_ms_{n}"] = \
+                        sh[f"{design}_device_ms"]
             if "library_ms" in sh:
                 entry[f"library_ms_{n}"] = sh["library_ms"]
         kernels.append(entry)
@@ -2487,17 +2849,20 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = phase_device(torch)
-    first_lib = phase_build()
+    first_lib, second_lib = phase_build()
     step_parity = phase_step_parity(torch, dev)
     scenario_parity = phase_scenario_parity(torch, dev)
-    stats = {"raycast": phase_raycast(torch, dev, first_lib),
+    stats = {"raycast": phase_raycast(torch, dev, first_lib, second_lib),
              "track_cp_topk": phase_track(torch, dev, first_lib)}
-    stats.update(phase_kernel_forms(torch, dev))
+    rollouts = phase_forms_rollout(torch, dev)
+    forms = phase_kernel_forms(torch, dev, second_lib, rollouts)
+    stats["raycast"]["shapes"].update(forms.pop("raycast_xla")["shapes"])
+    stats.update(forms)
     stats.update(phase_libm(torch, dev))
     evaluate = phase_evaluate(torch)
     train = phase_train(torch, dev)
     train_pallas = phase_train_pallas(torch)
-    forms = phase_train_forms(torch)
+    train_forms = phase_train_forms(torch)
     phase_bf16(torch, dev)
     phase_tabular(torch)
     train_agents = phase_train_agents(torch, dev)
@@ -2525,8 +2890,10 @@ def main():
                        "steps": NATIVE_STEPS}
     paths["oracle"] = {"launches": oracle["launches"],
                        "steps": oracle["steps_checked"]}
-    for name, counts in forms.items():
+    for name, counts in train_forms.items():
         paths[name] = {"launches": counts, "steps": FORM_CHUNK}
+    for name, r in rollouts.items():
+        paths[name] = {"launches": r["launches"], "steps": r["steps"]}
     paths["step_parity"] = step_parity
     paths["scenario_parity"] = scenario_parity
     emit({"kernels": kernel_line(smi, stats, paths, evaluate, train_agents,

@@ -35,16 +35,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 BUILD_TIMEOUT_S = 600
 
-build_seconds = None
+build_seconds = None   # wall time of this process's nvcc call, if it built
 # the kernel's kForm of each form of ops.risk.FORMS
-TRACK_FORMS = {"xla": 0, "strict": 1, "pallas": 2}   # wall time of this process's nvcc call, if it built
+TRACK_FORMS = {"xla": 0, "strict": 1, "pallas": 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "crowdnav_raycast": [_P] * 7 + [_I] * 7 + [_F] * 4 + [_P],
-    "crowdnav_raycast_pallas": [_P] * 4 + [_I] * 7 + [_F] * 5 + [_P],
+    "crowdnav_raycast": [_P] * 7 + [_I] * 7 + [_F] * 5 + [_P],
+    "crowdnav_raycast_pallas": [_P] * 4 + [_I] * 7 + [_F] * 6 + [_P],
     "crowdnav_track_cp_topk": [_P] + [_I] * 6 + [_F] * 8 + [_I, _P],
     "crowdnav_libm_sincos": [_P] * 2 + [_I] * 4 + [_P],
     "crowdnav_libm_atan2": [_P] * 3 + [_I] * 3 + [_P],
@@ -64,24 +64,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin)")
 
 
-def library_path(csrc: Path = CSRC) -> Path:
+def library_path(csrc: Path = CSRC, include_dirs=()) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(Path(csrc).glob("*.cu*")):
+    files = sorted(Path(csrc).glob("*.cu*"))
+    for d in include_dirs:
+        files += sorted(Path(d).glob("*.cuh"))
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcrowdnav_kernels_{h.hexdigest()[:16]}.so"
 
 
-def compile_library(csrc: Path = CSRC) -> tuple[Path, float | None]:
-    """Run one ``nvcc`` call over the ``.cu`` files of ``csrc`` if their
-    library is not built yet; return its path and the call's seconds (None
-    if it was built already)."""
-    path = library_path(csrc)
+def compile_library(csrc: Path = CSRC,
+                    include_dirs=()) -> tuple[Path, float | None]:
+    """Run one ``nvcc`` call over the ``.cu`` files of ``csrc`` (headers
+    also from ``include_dirs``) if their library is not built yet; return
+    its path and the call's seconds (None if it was built already)."""
+    path = library_path(csrc, include_dirs)
     if path.exists():
         return path, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources(csrc))]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-I{d}" for d in include_dirs), "-o",
+           str(tmp), *map(str, sources(csrc))]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True,
                          timeout=BUILD_TIMEOUT_S)
@@ -158,9 +163,20 @@ def raycast(pos, cos_yaw, sin_yaw, cos_beam, sin_beam, peds, half, r2,
     code = library().crowdnav_raycast(
         *ptrs, out.data_ptr(), n, b, p, geo.grid, geo.threads,
         geo.beams_per_thread, geo.smem_bytes, half, r2, min_range, max_range,
-        _stream(pos.device))
+        launch.raycast_reach2(r2, max_range), _stream(pos.device))
     _check(code, "crowdnav_raycast")
     return out
+
+
+def raycast_pallas_buffers(pos, yaw, peds, n_beams):
+    """Checked input addresses of the Pallas form and the (N, n_beams)
+    float32 output."""
+    f32 = torch.float32
+    n, p = pos.shape[0], peds.shape[1]
+    ptrs = [_cuda_input("pos", pos, f32, (n, 2)),
+            _cuda_input("yaw", yaw, f32, (n,)),
+            _cuda_input("peds", peds, f32, (n, p, 2))]
+    return ptrs, torch.empty((n, n_beams), dtype=f32, device=pos.device)
 
 
 def raycast_pallas(pos, yaw, peds, n_beams, half, r2, min_range,
@@ -169,17 +185,14 @@ def raycast_pallas(pos, yaw, peds, n_beams, half, r2, min_range,
     """Launch the raycast kernel's Pallas form; arguments as
     ``ops.lidar.raycast_pallas_plain``. Returns (N, n_beams) float32
     ranges."""
-    f32 = torch.float32
+    ptrs, out = raycast_pallas_buffers(pos, yaw, peds, n_beams)
     n, p = pos.shape[0], peds.shape[1]
-    ptrs = [_cuda_input("pos", pos, f32, (n, 2)),
-            _cuda_input("yaw", yaw, f32, (n,)),
-            _cuda_input("peds", peds, f32, (n, p, 2))]
-    out = torch.empty((n, n_beams), dtype=f32, device=pos.device)
     geo = launch.raycast_launch(n, n_beams, p, threads, beams_per_thread)
     code = library().crowdnav_raycast_pallas(
         *ptrs, out.data_ptr(), n, n_beams, p, geo.grid, geo.threads,
         geo.beams_per_thread, geo.smem_bytes, half, r2, min_range, max_range,
-        nm.f32(math.pi / 180.0), _stream(pos.device))
+        nm.f32(math.pi / 180.0), launch.raycast_reach2(r2, max_range),
+        _stream(pos.device))
     _check(code, "crowdnav_raycast_pallas")
     return out
 

@@ -32,11 +32,14 @@ LIBM_SINCOS_PAIR_F64_OPS = 2 * LIBM_SINCOS_F64_OPS - 4
 # minimum: 5), the two epsilon selects (2) and the range clip (2); per
 # beam and pedestrian, b = relx*dx + rely*dy (3) and b*b subtracted from
 # rel2 (2); per hit (disc >= 0), disc, its square root and b - root; per
-# env and pedestrian, relx, rely (2) and rel2 (3)
+# env and pedestrian, relx, rely (2) and rel2 (3), and since the cull by
+# reach (``csrc/raycast.cu``) the test of rel2 against the reach (1), the
+# pair and hit terms then taken over the pedestrians in reach only
 RAYCAST_OPS_PER_BEAM = 15
 RAYCAST_OPS_PER_PAIR = 5
 RAYCAST_OPS_PER_HIT = 3
 RAYCAST_OPS_PER_ENV_PED = 5
+RAYCAST_OPS_PER_REACH_TEST = 1
 
 
 def bound_ms(nbytes: float, ops: float, flops: float = H100_F32_FLOPS):
@@ -48,23 +51,37 @@ def bound_ms(nbytes: float, ops: float, flops: float = H100_F32_FLOPS):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def raycast_work(n: int, b: int, p: int, hits: int):
+def _raycast_ped_ops(n: int, b: int, p: int, hits: int, in_reach):
+    """The operations per pedestrian: every pair test when ``in_reach`` is
+    None (the count before the cull), else the reach test of every (env,
+    pedestrian) and the pair tests of the ``in_reach`` pedestrians."""
+    pairs, tests = (n * p, 0) if in_reach is None else (in_reach, n * p)
+    return (b * pairs * RAYCAST_OPS_PER_PAIR + RAYCAST_OPS_PER_HIT * hits
+            + RAYCAST_OPS_PER_ENV_PED * n * p
+            + RAYCAST_OPS_PER_REACH_TEST * tests)
+
+
+def raycast_work(n: int, b: int, p: int, hits: int, in_reach=None):
     """Raycast of ``n`` envs x ``b`` beams against ``p`` pedestrians, of
-    which ``hits`` (beam, pedestrian) pairs meet the circle's line."""
+    which ``hits`` (beam, pedestrian) pairs meet the circle's line; with
+    ``in_reach`` (:func:`raycast_in_reach`), the work of the cull by
+    reach: the pair tests of those (env, pedestrian) pairs only, and
+    ``hits`` counted over them (``reach2`` of :func:`raycast_hits`)."""
     nbytes = 4 * (2 * n + 2 * n + 2 * b + 2 * n * p + n * b)
-    ops = (n * b * (RAYCAST_OPS_PER_BEAM + RAYCAST_OPS_PER_PAIR * p)
-           + RAYCAST_OPS_PER_HIT * hits + RAYCAST_OPS_PER_ENV_PED * n * p)
+    ops = (n * b * RAYCAST_OPS_PER_BEAM
+           + _raycast_ped_ops(n, b, p, hits, in_reach))
     return nbytes, ops
 
 
-def raycast_pallas_work(n: int, b: int, p: int, hits: int):
+def raycast_pallas_work(n: int, b: int, p: int, hits: int, in_reach=None):
     """The raycast's Pallas form: ``(bytes, float32 ops, float64 ops)``.
     It reads the yaw in place of its trig and the beam tables, and per
     beam computes the angle (a multiply-add) and the C library's cos and
-    sin of it (float64) in place of the angle addition."""
+    sin of it (float64) in place of the angle addition; ``hits`` and
+    ``in_reach`` as :func:`raycast_work`."""
     nbytes = 4 * (2 * n + n + 2 * n * p + n * b)
-    ops = (n * b * (RAYCAST_OPS_PER_BEAM - 6 + 2 + RAYCAST_OPS_PER_PAIR * p)
-           + RAYCAST_OPS_PER_HIT * hits + RAYCAST_OPS_PER_ENV_PED * n * p)
+    ops = (n * b * (RAYCAST_OPS_PER_BEAM - 6 + 2)
+           + _raycast_ped_ops(n, b, p, hits, in_reach))
     return nbytes, ops, n * b * LIBM_SINCOS_PAIR_F64_OPS
 
 
@@ -77,34 +94,49 @@ def mixed_bound_ms(nbytes: float, ops32: float, ops64: float):
     return t[by] * 1e3, by
 
 
-def raycast_dir_hits(pos, dx, dy, peds, r2) -> int:
+def _rel(pos, peds):
+    """relx, rely (N, P) and rel2 as the kernel computes them."""
+    relx = peds[..., 0] - pos[:, 0:1]
+    rely = peds[..., 1] - pos[:, 1:2]
+    return relx, rely, nm.fma(relx, relx, rely * rely)
+
+
+def raycast_in_reach(pos, peds, reach2) -> int:
+    """The (env, pedestrian) pairs the cull by reach keeps: rel2 not above
+    ``reach2`` (``kernels.launch.raycast_reach2``; a NaN is kept)."""
+    return int(torch.count_nonzero(~(_rel(pos, peds)[2] > reach2)))
+
+
+def raycast_dir_hits(pos, dx, dy, peds, r2, reach2=None) -> int:
     """The (beam, pedestrian) pairs whose discriminant is >= 0 for the
     beam directions ``dx``, ``dy`` (N, B), computed as the kernel computes
-    it (``ops.lidar.circle_hit``)."""
+    it (``ops.lidar.circle_hit``); with ``reach2``, those of the
+    pedestrians in reach only (:func:`raycast_in_reach`)."""
+    relx, rely, rel2 = _rel(pos, peds)
     hits = 0
     for k in range(peds.shape[1]):
-        relx = peds[:, k, 0:1] - pos[:, 0:1]
-        rely = peds[:, k, 1:2] - pos[:, 1:2]
-        bb = nm.fma(relx, dx, rely * dy)
-        disc = r2 - nm.fma(-bb, bb, nm.fma(relx, relx, rely * rely))
+        bb = nm.fma(relx[:, k:k + 1], dx, rely[:, k:k + 1] * dy)
+        disc = r2 - nm.fma(-bb, bb, rel2[:, k:k + 1])
+        if reach2 is not None:
+            disc = torch.where(rel2[:, k:k + 1] > reach2, -1.0, disc)
         hits += int(torch.count_nonzero(disc >= 0.0))
     return hits
 
 
-def raycast_hits(pos, cy, sy, ca, sa, peds, r2) -> int:
+def raycast_hits(pos, cy, sy, ca, sa, peds, r2, reach2=None) -> int:
     """:func:`raycast_dir_hits` of the XLA form; arguments as
     ``ops.lidar.raycast_plain``."""
     dx = nm.fma(cy[:, None], ca, sy[:, None] * sa)
     dy = nm.fma(sy[:, None], ca, -(cy[:, None] * sa))
-    return raycast_dir_hits(pos, dx, dy, peds, r2)
+    return raycast_dir_hits(pos, dx, dy, peds, r2, reach2)
 
 
-def raycast_pallas_hits(pos, yaw, peds, n_beams, r2) -> int:
+def raycast_pallas_hits(pos, yaw, peds, n_beams, r2, reach2=None) -> int:
     """:func:`raycast_dir_hits` of the Pallas form; arguments as
     ``ops.lidar.raycast_pallas_plain``."""
     from crowdnav_tpu_torch.ops.lidar import beam_angles
     ang = beam_angles(yaw, n_beams)
-    return raycast_dir_hits(pos, nm.cos(ang), nm.sin(ang), peds, r2)
+    return raycast_dir_hits(pos, nm.cos(ang), nm.sin(ang), peds, r2, reach2)
 
 
 def track_cp_topk_fields(S: int, T: int, K: int):

@@ -3,13 +3,16 @@
     python scripts/bench_torch_kernels.py
 
 Times, by device time alone (``crowdnav_tpu_torch/kernels/timing.py``),
-the raycast at each block size and number of beams per thread (each held
-bit-equal to the plain version first) and, in its default geometry, at 0
-and 28 pedestrians besides 14 (the cost per beam against the cost per
-pedestrian),
-and the tracker -> CP -> top-K kernel at each number of envs per block,
-with their first designs (``scripts/first_design_kernels/``) beside them, at
-1,024 and 16,384 envs on the inputs of ``chip_smoke.py``; each geometry's
+the raycast's two forms at each block size and number of beams per thread
+(each held bit-equal to the plain version first), their second designs
+(``scripts/second_design_kernels/``, without the cull by reach) at each
+number of beams per thread, and, in its default geometry, both forms at
+0 and 28 pedestrians besides 14 (the cost per beam against the cost per
+pedestrian), and the tracker -> CP -> top-K kernel at each number of envs
+per block, with their first designs (``scripts/first_design_kernels/``)
+beside them, at 1,024 and 16,384 envs on the inputs of ``chip_smoke.py``;
+at 16,384 envs the raycast also on the state of a 64-step rollout of the
+Pallas forms' env (``chip_smoke.phase_forms_rollout``); each geometry's
 output is first held bit-equal to the plain version's. Beside them: the
 same launches as CUPTI times them, the time of a one-element add (the
 method's floor per call) and of filling a fresh output of the raycast's
@@ -33,6 +36,45 @@ ENVS_PER_BLOCK = (1, 2, 4, 8, 16)
 THREADS = (128, 256, 512)
 
 
+def sweep_forms(torch, cs, second_lib, cfg, pos, yaw, peds, dev):
+    """Device ms of both raycast forms at each geometry, and of their
+    second designs at each number of beams per thread (128 threads)."""
+    from crowdnav_tpu_torch.kernels import build, launch, roofline, timing
+    from crowdnav_tpu_torch.ops import lidar
+    from crowdnav_tpu_torch.utils import numerics as nm
+    consts = lidar._consts(cfg.ped_radius, cfg.room_half_inner,
+                           cfg.max_scan_range, cfg.lidar_min_range)
+    ca, sa = lidar.beam_tables(cfg.n_scans, dev)
+    forms = {
+        "pallas": ((pos, yaw, peds, cfg.n_scans, *consts),
+                   build.raycast_pallas, lidar.raycast_pallas_plain,
+                   cs.second_design_raycast_pallas),
+        "xla": ((pos, nm.cos(yaw), nm.sin(yaw), ca, sa, peds, *consts),
+                build.raycast, lidar.raycast_plain,
+                cs.second_design_raycast)}
+    n, p = peds.shape[:2]
+    nbytes, _ = roofline.raycast_work(n, cfg.n_scans, p, 0)
+    out = {}
+    for form, (args, kernel, plain, second) in forms.items():
+        sets = timing.clone_args(args, timing.copies_for(nbytes))
+        ref = plain(*args)
+        res = {}
+        for r in launch.RAYCAST_BEAMS_PER_THREAD:
+            old = functools.partial(second, torch, second_lib,
+                                    beams_per_thread=r)
+            if not torch.equal(old(*args), ref):
+                raise AssertionError(f"raycast {form} second design x{r} "
+                                     f"differs")
+            res[f"second_design_128x{r}"] = timing.device_ms(old, sets, 100)
+            for t in THREADS:
+                fn = functools.partial(kernel, threads=t, beams_per_thread=r)
+                if not torch.equal(fn(*args), ref):
+                    raise AssertionError(f"raycast {form} {t}x{r} differs")
+                res[f"{t}x{r}"] = timing.device_ms(fn, sets, 100)
+        out[form] = res
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -47,7 +89,12 @@ def main():
     cfg = make_config("crowd_dense", "crowd")
     first_lib = build.load(build.compile_library(cs.FIRST_DESIGN)[0],
                            cs.FIRST_DESIGN_SIGNATURES)
+    second_lib = build.load(
+        build.compile_library(cs.SECOND_DESIGN, (build.CSRC,))[0],
+        cs.SECOND_DESIGN_SIGNATURES)
     build.library()
+    state = cs.phase_forms_rollout(
+        torch, dev, ("rollout_pallas",))["rollout_pallas"]["state"]
     ca, sa = lidar.beam_tables(cfg.n_scans, dev)
     g = torch.Generator(device=dev).manual_seed(1)
     S, T, K = cfg.max_segments, cfg.max_tracks, cfg.k_obstacles
@@ -71,18 +118,29 @@ def main():
             functools.partial(build.raycast, threads=t, beams_per_thread=r),
             sets, reps=100)
             for t in THREADS for r in launch.RAYCAST_BEAMS_PER_THREAD}
-        # at 0 and 28 pedestrians: the per-beam cost (walls) against the
-        # per-pedestrian cost
+        # at 0 and 28 pedestrians: the per-beam cost (walls; in the Pallas
+        # form also the C library's trig) against the per-pedestrian cost
         for p in (0, 28):
-            pargs = args[:5] + (u((n, p, 2), -1.35, 1.35),) + args[6:]
-            if not torch.equal(build.raycast(*pargs),
-                               lidar.raycast_plain(*pargs)):
-                raise AssertionError(f"raycast at {p} pedestrians differs")
-            ray[f"p{p}"] = timing.device_ms(
-                build.raycast, timing.clone_args(pargs, len(sets)), reps=100)
+            peds = u((n, p, 2), -1.35, 1.35)
+            for form, fargs, kernel, plain in (
+                    ("", args[:5] + (peds,) + args[6:], build.raycast,
+                     lidar.raycast_plain),
+                    ("pallas_", (pos, yaw, peds, cfg.n_scans, *args[6:]),
+                     build.raycast_pallas, lidar.raycast_pallas_plain)):
+                if not torch.equal(kernel(*fargs), plain(*fargs)):
+                    raise AssertionError(f"raycast {form}at {p} pedestrians "
+                                         f"differs")
+                ray[f"{form}p{p}"] = timing.device_ms(
+                    kernel, timing.clone_args(fargs, len(sets)), reps=100)
         ray["first_design"] = timing.device_ms(
             functools.partial(cs.first_design_raycast, torch, first_lib),
             sets, reps=100)
+        pallas = {"uniform": sweep_forms(
+            torch, cs, second_lib, cfg, pos, yaw, args[5], dev)}
+        if n == cs.N_BIG:
+            pallas["rollout_state"] = sweep_forms(
+                torch, cs, second_lib, cfg, state.pos, state.yaw,
+                state.ped_pos, dev)
         segs, tracks, rpos, rprev, cc = cs._random_population(
             torch, cfg, n, dev, 0)
         kargs = (cfg, segs.confirmed, segs.is_obstacle, segs.center_pos,
@@ -132,6 +190,7 @@ def main():
             [()], 100)
         print(json.dumps({"n_envs": n,
                           "raycast_ms": ray,
+                          "raycast_forms_ms": pallas,
                           "track_cp_topk_ms_by_envs_per_block": trk,
                           "cupti_kernel_ms": prof,
                           "device_ms_hot_l2": burst_hot,

@@ -130,6 +130,61 @@ def test_raycast_hits_counts_the_rays_that_meet_a_circle():
     assert roofline.raycast_hits(*args, far, R2) == 0
 
 
+@pytest.mark.parametrize("p", [0, 14, 6, 20])
+def test_raycast_ops_in_reach_by_hand(p):
+    """With the cull by reach the pair tests count only the (env,
+    pedestrian) pairs in reach, and every pair pays the reach test."""
+    n, hits, in_reach = 3, 11, 5 if p else 0
+    by_hand = n * B * 15 + 5 * B * in_reach + 3 * hits + (5 + 1) * n * p
+    assert roofline.raycast_work(n, B, p, hits, in_reach)[1] == by_hand
+    culled = roofline.raycast_pallas_work(n, B, p, hits, in_reach)[1]
+    assert culled == by_hand - n * B * (6 - 2)
+    if p:
+        assert by_hand < roofline.raycast_work(n, B, p, hits)[1]
+
+
+@pytest.mark.parametrize("form", ["xla", "pallas"])
+def test_raycast_hits_in_reach_are_those_of_the_kept_pedestrians(form):
+    """The hits counted under the cull are the hits of the inputs with
+    every pedestrian beyond the reach set to NaN (which meets no beam;
+    a far placeholder can, by cancellation in its rel2 - b^2), and the
+    pedestrians in reach those whose rel2 (the kernel's operations) does
+    not exceed ``reach2``."""
+    args = _raycast_args(64, 14, seed=5)
+    pos, peds = args[0], args[5]
+    reach2 = launch.raycast_reach2(R2, nm.f32(CFG.max_scan_range))
+    relx = peds[..., 0] - pos[:, 0:1]
+    rely = peds[..., 1] - pos[:, 1:2]
+    far = nm.fma(relx, relx, rely * rely) > reach2
+    kept = torch.where(far[..., None], torch.full_like(peds, np.nan), peds)
+    assert roofline.raycast_in_reach(pos, peds, reach2) == int((~far).sum())
+    assert 0 < int((~far).sum()) < far.numel()
+    if form == "xla":
+        def hits(pd, r=None):
+            return roofline.raycast_hits(*args[:5], pd, R2, r)
+    else:
+        yaw = torch.atan2(args[2], args[1])
+
+        def hits(pd, r=None):
+            return roofline.raycast_pallas_hits(pos, yaw, pd, B, R2, r)
+    assert hits(peds, reach2) == hits(kept) < hits(peds)
+
+
+def test_raycast_in_reach_by_hand():
+    """One robot at the origin; pedestrians on the threshold, an ulp of
+    rel2 beyond it, inside the robot's circle and at the placeholder."""
+    reach2 = launch.raycast_reach2(R2, nm.f32(CFG.max_scan_range))
+    d_in = float(np.sqrt(np.float32(reach2)))
+    while nm.f32(d_in) ** 2 > reach2:
+        d_in = float(np.nextafter(np.float32(d_in), np.float32(0)))
+    d_out = float(np.nextafter(np.float32(d_in), np.float32(1)))
+    while float(np.float32(d_out) * np.float32(d_out)) <= reach2:
+        d_out = float(np.nextafter(np.float32(d_out), np.float32(1)))
+    peds = torch.tensor([[[d_in, 0.0], [0.0, -d_out], [0.01, 0.0],
+                          [1e3, 1e3]]])
+    assert roofline.raycast_in_reach(torch.zeros(1, 2), peds, reach2) == 2
+
+
 def test_bounds_name_what_sets_them():
     ms, by = roofline.bound_ms(3.35e9, 0)
     assert (ms, by) == (pytest.approx(1.0), "bytes")
@@ -164,7 +219,9 @@ def test_raycast_launch_covers_every_slot(n, r):
     assert m * r >= B > m * r - r
     total = n * m
     assert geo.grid * geo.threads >= total > (geo.grid - 1) * geo.threads
-    assert geo.smem_bytes == geo.envs_per_block * (16 + 12 * 14)
+    # per env the pose, 14 relative centres and squared norms, and one
+    # reach mask word
+    assert geo.smem_bytes == geo.envs_per_block * (16 + 12 * 14 + 4)
     beams = {j + k * m for j in range(m) for k in range(r)} & set(range(B))
     assert beams == set(range(B))
 
@@ -181,6 +238,13 @@ def test_raycast_envs_per_block_is_the_most_a_block_touches(threads, b, r):
                for first in range(0, total, threads)]
     assert max(touched) <= geo.envs_per_block
     assert geo.envs_per_block == -(-(threads - 1) // m) + 1
+
+
+@pytest.mark.parametrize("p,words", [(0, 0), (1, 1), (20, 1), (32, 1),
+                                     (33, 2)])
+def test_raycast_smem_holds_a_reach_mask_word_per_32_pedestrians(p, words):
+    geo = launch.raycast_launch(1000, B, p)
+    assert geo.smem_bytes == geo.envs_per_block * (16 + 12 * p + 4 * words)
 
 
 def test_raycast_launch_refuses_bad_blocks():
