@@ -36,7 +36,8 @@ Phases, each printing one JSON line:
    step's shapes, and its device time;
 7. ``evaluate``: the port's evaluation driver, greedy TD3 on suite
    ``train`` with the exported ``final_full`` actor, 1,024 envs x 500 steps,
-   with each kernel's launch count on that run;
+   through the driver's captured graph: the wrappers' calls on that run,
+   and each kernel form once a replay in a profiler window of its graph;
 8. ``train``: the default configuration's training path at full width
    (16,384 envs, 32 updates x batch 4,096, bfloat16 replay, the epsilon
    spectrum of the flagship recipe) through the functions ``drivers/train``
@@ -47,9 +48,26 @@ Phases, each printing one JSON line:
    is set to the CPU's, and every update the card's trainer makes is held
    to the CPU's update of the same state within the derived float32 bound
    (``utils/error_bounds.py``);
-9. ``train_pallas``: the main path, the ``bench.py`` cell's
-   configuration (``risk_backend="pallas"``) at the same width, one
-   warm-up and two timed chunks;
+9. ``train_pallas``: the ``bench.py`` cell's configuration
+   (``risk_backend="pallas"``) at the same width through the eager loop
+   (``rollout_chunk``, with the step's time split), one warm-up and one
+   timed chunk;
+   ``jitted``: the main path, ``Trainer.make_jitted`` (one captured CUDA
+   graph of the step) against the eager chunk from one seed, each side
+   1 + 2 chunks of the ``bench.py`` cell as
+   ``scripts/bench_torch_train.py`` builds it (0 differing elements in
+   every state field, the generator's state included, after the first
+   and the last chunk; equal summaries), then ``train_forms``' two paths
+   (1 + 1 chunks), DDPG, SAC and DQN at ``train_agents``' widths (one
+   chunk, the learn gate opening inside it), the TD3 evaluation at 1,024
+   envs x 500 steps, and ``drivers/train``'s collapse restart and
+   ``--resume`` at 256 envs, through the graph and eagerly (the same
+   events and agent files); ms a step on the host clock and on CUDA
+   events, a profiler window of each side (device operations a step,
+   busy share), peak memory, the capture's seconds; each kernel form of
+   the path launched once a step by the replays in the profiler's trace
+   (by the kernels' names), the same as an eager step, and each wrapper
+   called by the eager steps and the capture only;
 10. ``train_forms``: the Pallas raycast with the Pallas tracker and the
    three noise knobs, and the strict quirks, each one timed chunk of
    training at 1,024 envs;
@@ -63,7 +81,8 @@ Phases, each printing one JSON line:
    64 envs;
 14. ``evaluate_agents``: greedy evaluation of the three committed policies
    (``crowdnav_tpu_torch/assets/``) through ``drivers/evaluate``, 256 envs
-   x 500 steps, each Wilson 95% interval held to overlap its JAX record's;
+   x 500 steps, each Wilson 95% interval held to overlap its JAX record's,
+   the launches counted as ``evaluate``'s;
 15. ``sharded``: the ``bench.py`` cell's training as 2 gloo ranks on the
    one card (``parallel/mesh.ShardedTrainer`` through ``drivers/train``
    under ``--multihost``; 8,192 envs and batch 2,048 a rank, each rank a
@@ -117,11 +136,15 @@ Kernel times are device time alone (``kernels/timing.py``): a burst of
 wrapper calls queued behind ``torch.cuda._sleep``, over input copies that
 keep each launch's bytes out of the L2 cache, at 1,024 envs (the evaluate
 path) and 16,384 envs (the training batch of ``bench.py``). ``ms`` and
-``bound_ms`` are at 16,384 envs; ``launches`` counts the run of the path
-that runs the form (``launches_path``), ``launches_<path>`` every
+``bound_ms`` are at 16,384 envs; ``launches`` counts the form's kernels
+in the profiler's trace of the replays of the graph path that runs the
+form (``launches_path``: ``jitted_cell``, the main path, and
+``jitted_<path>`` the others), ``launches_<path>`` every
 training run, ``launches_evaluate`` the TD3 evaluation,
 ``launches_train_<algo>`` and ``launches_evaluate_<algo>`` the other
-learners' runs, ``launches_sharded_rank<r>``, ``launches_multihost_nccl``,
+learners' runs (the evaluate driver's, which replays a graph, in a
+profiler window of its replays), ``launches_sharded_rank<r>``,
+``launches_multihost_nccl``,
 ``launches_deploy`` and ``launches_trajectory`` the deployment and audit
 paths (the last three with their resets' launches), ``launches_native``
 and ``launches_oracle`` the host simulator's comparison and the oracle's
@@ -140,16 +163,20 @@ and the script exits non-zero; without a CUDA device it fails at once.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 
@@ -1043,20 +1070,14 @@ def phase_evaluate(torch):
                         "crowdnav_tpu_torch", "assets",
                         "final_full_actor.npz")
     with tempfile.TemporaryDirectory() as out:
-        _reset_launches()
         t0 = time.perf_counter()
-        results = evaluate.main([
-            "--suite", "train", "--checkpoint", ckpt, "--n-envs",
-            str(EVAL_ENVS), "--max-steps", str(EVAL_STEPS), "--jitter",
-            "1.0", "--seed", "0", "--outdir", out, "--device", "cuda"])
-        torch.cuda.synchronize()
+        results, graphs = _through_graphs(
+            torch, "evaluate", XLA_KERNELS, lambda: evaluate.main([
+                "--suite", "train", "--checkpoint", ckpt, "--n-envs",
+                str(EVAL_ENVS), "--max-steps", str(EVAL_STEPS), "--jitter",
+                "1.0", "--seed", "0", "--outdir", out, "--device", "cuda"]))
         wall = time.perf_counter() - t0
-        launches = _read_launches()
     s = results[0]
-    for name, count in launches.items():
-        if name in XLA_KERNELS and count < EVAL_STEPS:
-            raise AssertionError(f"{name} launched {count} times on the "
-                                 f"evaluate path, expected >= {EVAL_STEPS}")
     rate = s["success_rate"]
     emit({"phase": "evaluate", "episodes": s["episodes"],
           "successes": s["successes"], "success_rate": rate,
@@ -1070,10 +1091,10 @@ def phase_evaluate(torch):
           "mean_social_safety": s["mean_social_safety"],
           "rollout_s": s["timelapse"], "wall_s": wall,
           "env_steps_per_s": EVAL_ENVS * EVAL_STEPS / s["timelapse"],
-          "launches": launches})
+          **graphs})
     if not (s["episodes"] > 0 and rate >= 0.90):
         raise AssertionError(f"success rate {rate} < 0.90")
-    return launches
+    return {"launches": graphs["launches"], "steps": graphs["launch_steps"]}
 
 
 
@@ -1131,10 +1152,9 @@ TRAIN_FULL = TRAIN_FLAGS + [
     "--batch-size", "4096", "--learn-start", "256", "--reset-bank", "256",
     "--explore-eps", "1.0", "--explore-eps-min", "0.05",
     "--explore-spectrum", "--device", "cuda"]
-TRAIN_TIMED_CHUNKS = 2
-# the default configuration's training path: its depth cut to one timed
-# chunk, as the bench cell's configuration (risk_backend="pallas")
-# carries the two timed chunks of the main path
+# one timed chunk of the eager loop each: the jitted phase carries the
+# bench cell's two timed chunks, eagerly and through the graph
+TRAIN_TIMED_CHUNKS = 1
 TRAIN_XLA_TIMED_CHUNKS = 1
 SMALL = dict(n=256, steps=2, updates=2)
 
@@ -1336,6 +1356,466 @@ def phase_train_pallas(torch):
                        path=("raycast", "track_cp_topk_pallas"))
     emit({"phase": "train_pallas", "full": full})
     return full
+
+
+# ---- the jitted chunk: Trainer.make_jitted, one captured CUDA graph of
+# the step, against the eager chunk ----
+
+JIT_TIMED_CHUNKS = 2        # after a first chunk: 1 + 2 chunks a side
+JIT_PROFILE_STEPS = 3
+JIT_AGENT_CHUNKS = 1        # DDPG, SAC, DQN: the gate opens inside it
+JIT_FORM_CHUNKS = 2
+JIT_RESTART_FLAGS = [
+    "--algo", "td3", "--n-envs", "256", "--chunk", "8", "--env-steps",
+    "4096", "--updates-per-step", "2", "--batch-size", "256",
+    "--learn-start", "512", "--max-steps", "3", "--jitter", "1.0",
+    "--replay-obs-dtype", "bfloat16", "--buffer-size", "4096",
+    "--restart-on-collapse", "1", "--collapse-detect-chunk", "1",
+    "--collapse-reward-threshold", "1e9", "--ckpt-every-chunks", "1",
+    "--seed", "0", "--device", "cuda"]
+
+
+def _bench_module():
+    """``scripts/bench_torch_train.py``, which builds the ``bench.py``
+    cell through the port's ``drivers/train``."""
+    import importlib.util
+    path = os.path.join(ROOT, "scripts", "bench_torch_train.py")
+    spec = importlib.util.spec_from_file_location("bench_torch_train", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _state_differ(torch, a, b):
+    """``(differing elements in all, {field: differing elements})`` of two
+    trainer states: every tensor, the generators' states, the gate."""
+    from crowdnav_tpu_torch.utils.tree import named_tensors
+    ta, tb = dict(named_tensors(a)), dict(named_tensors(b))
+    if set(ta) != set(tb):
+        raise AssertionError(f"state fields differ: {set(ta) ^ set(tb)}")
+    out = {k: _n_differ(torch, ta[k], tb[k]) for k in sorted(ta)}
+    out["gen_state"] = _n_differ(torch, a.gen.get_state(),
+                                 b.gen.get_state())
+    out["learning_open"] = int(a.learning_open != b.learning_open)
+    elements = sum(t.numel() for t in ta.values())
+    return sum(out.values()), {k: v for k, v in out.items() if v}, elements
+
+
+def _between(trainer, state):
+    """The drivers' work between chunks: drained statistics, the DQN's
+    epsilon decay."""
+    summary, state = trainer.drain_stats(state)
+    if hasattr(trainer.agent, "decay_epsilon"):
+        state = dataclasses.replace(state, agent_state=trainer.agent
+                                    .decay_epsilon(state.agent_state))
+    return summary, state
+
+
+def _same_summary(name, a, b):
+    if a != b:
+        diff = {k: (a[k], b.get(k)) for k in a if a[k] != b.get(k)}
+        raise AssertionError(f"{name}: graph and eager summaries differ: "
+                             f"{diff}")
+
+
+# each kernel form by its kernel's name as the profiler reports it
+# (demangled): the raycast's <beams a thread, Pallas form>, the tracker's
+# <S, T, K, form>, form 0 XLA, 1 strict, 2 Pallas (kernels/csrc)
+KERNEL_EVENTS = (
+    ("raycast", r"\braycast_kernel<\d+, false>"),
+    ("raycast_pallas", r"\braycast_kernel<\d+, true>"),
+    ("track_cp_topk", r"\btrack_cp_topk_kernel<\d+, \d+, \d+, 0>"),
+    ("track_cp_topk_strict", r"\btrack_cp_topk_kernel<\d+, \d+, \d+, 1>"),
+    ("track_cp_topk_pallas", r"\btrack_cp_topk_kernel<\d+, \d+, \d+, 2>"),
+    ("libm_sincos", r"\bsincos_kernel\("),
+    ("libm_atan2", r"\batan2_kernel\("))
+
+
+def kernel_events(card):
+    """The kernels of each form among a profiler's records of the card,
+    by name; raises on a kernel of the port's sources whose name no form
+    matches."""
+    out = {name: 0 for name, _ in KERNEL_EVENTS}
+    for e in card:
+        forms = [n for n, pat in KERNEL_EVENTS if re.search(pat, e.name)]
+        if len(forms) > 1 or (not forms and re.search(
+                r"raycast_kernel|track_cp_topk_kernel|\b(sincos|atan2)"
+                r"_kernel\b", e.name)):
+            raise AssertionError(f"kernel {e.name!r}: forms {forms}")
+        if forms:
+            out[forms[0]] += 1
+    return out
+
+
+def _jit_profile(torch, step, steps=JIT_PROFILE_STEPS):
+    """Busy share and device operations a step over ``steps`` calls of
+    ``step``, the card's activity only, between two marker kernels
+    (``bench_torch_train.marked_window``, ``trace_summary``), and the
+    kernels of each form among them (:func:`kernel_events`)."""
+    from torch.profiler import ProfilerActivity
+    bench = _bench_module()
+    prof, card, wall_ms = bench.marked_window(torch, step, steps,
+                                              [ProfilerActivity.CUDA])
+    out = bench.trace_summary(prof, card, steps, wall_ms)
+    out["launches"] = kernel_events(card)
+    out.pop("host_calls_per_step_and_self_ms")
+    out["top_kernels_ms_per_step"] = dict(
+        list(out["top_kernels_ms_per_step"].items())[:5])
+    return out
+
+
+def _timed(torch, chunk, state, n):
+    """``n`` chunks of ``chunk`` after the first: host clock and CUDA
+    events around them (the host waits for the card at the end), peak
+    memory above what was allocated at their start."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    base_res = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        state = chunk(state)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, {"wall_s": wall, "event_ms": start.elapsed_time(end),
+                   "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                   "peak_above_start_bytes":
+                   torch.cuda.max_memory_allocated() - base,
+                   "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+                   "reserved_above_start_bytes":
+                   torch.cuda.max_memory_reserved() - base_res}
+
+
+def _jit_pair(torch, trainer, chunks, label, profile=False):
+    """One trainer's eager chunk and jitted chunk from one seed (the
+    drivers' work between chunks): every state field 0 differing
+    elements after every chunk, equal summaries; the first chunk, then
+    ``chunks - 1`` timed chunks a side; the wrappers' calls on each side,
+    the capture's seconds; a profiler window of replays, and with
+    ``profile`` one of eager steps."""
+    tc = trainer.tcfg
+    t0 = time.perf_counter()
+    eager = trainer.init(0)
+    run = trainer.make_jitted()
+    graph = trainer.init(0)
+    init_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    eager = trainer.rollout_chunk(eager)
+    torch.cuda.synchronize()
+    first_eager_s = time.perf_counter() - t0
+    eager_calls = _read_launches()
+    _reset_launches()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph = run(graph)
+    torch.cuda.synchronize()
+    first_graph_s = time.perf_counter() - t0
+    calls = _read_launches()
+    # the capture's chunk: its peak counts the captured step's
+    # temporaries, which the graph's pool keeps reserved (the cache was
+    # emptied before it, as the capture empties it)
+    capture_memory = {
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "reserved_above_start_bytes": torch.cuda.memory_reserved() - base}
+    checked = []
+
+    def check(where):
+        n, fields, elements = _state_differ(torch, graph, eager)
+        checked.append({"after": where, "differing": n,
+                        "elements": elements})
+        if n:
+            raise AssertionError(f"{label}: graph vs eager after {where}: "
+                                 f"{n} differing elements: {fields}")
+
+    check("chunk 1")
+    out = {"envs": tc.n_envs, "chunk": tc.rollout_chunk,
+           "updates_per_step": tc.updates_per_step if tc.learning else 0,
+           "init_s": init_s, "first_chunk_s": {"eager": first_eager_s,
+                                               "graph": first_graph_s},
+           "capture_s": run.capture_s, "capture_chunk_memory": capture_memory}
+    if chunks > 1:
+        s_g, graph = _between(trainer, graph)
+        s_e, eager = _between(trainer, eager)
+        _same_summary(label, s_g, s_e)
+        _reset_launches()
+        eager, out["eager"] = _timed(torch, trainer.rollout_chunk, eager,
+                                     chunks - 1)
+        eager_calls = {k: n + c for (k, n), c in
+                       zip(eager_calls.items(), _read_launches().values())}
+        _reset_launches()
+        graph, out["graph"] = _timed(torch, run, graph, chunks - 1)
+        calls = {k: n + c for (k, n), c in
+                 zip(calls.items(), _read_launches().values())}
+        steps = (chunks - 1) * tc.rollout_chunk
+        out["timed_steps"] = steps
+        for side in ("eager", "graph"):
+            out[side]["host_ms_per_step"] = out[side]["wall_s"] * 1e3 / steps
+            out[side]["event_ms_per_step"] = out[side]["event_ms"] / steps
+        check(f"chunk {chunks}")
+    out.update(steps=chunks * tc.rollout_chunk, replayed_steps=run.replays,
+               wrapper_calls={"eager": eager_calls, "graph": calls})
+    s_g, graph = _between(trainer, graph)
+    s_e, eager = _between(trainer, eager)
+    _same_summary(label, s_g, s_e)
+    out["summary"] = {k: s_g[k] for k in ("episodes", "successes",
+                                          "mean_ego_safety",
+                                          "mean_social_safety")}
+    out["checked"] = checked
+    if profile:
+        box = [eager]
+
+        def eager_step():
+            box[0] = trainer._train_step(box[0])
+
+        out["profile_eager"] = _jit_profile(torch, eager_step)
+    out["profile_graph"] = _jit_profile(torch, run.graph.replay)
+    return out
+
+
+def _assert_captured(label, out, path):
+    """The replays in ``out``'s profiler window launched the raycast and
+    the tracker form of ``path`` once a step, the trig as many times
+    every step (at least once), no other form of the raycast or the
+    tracker, and as many of each as eager steps in the eager window; the
+    graph side's wrappers were called by its eager steps and its captures
+    only (``out["captures"]``, one by default)."""
+    replays = out["profile_graph"]["steps"]
+    seen = out["profile_graph"]["launches"]
+    eager_steps = out["steps"] - out["replayed_steps"]
+    captures = out.get("captures", 1)
+    calls = out["wrapper_calls"]["graph"]
+    for name, _ in KERNEL_EVENTS:
+        trig = name.startswith("libm")
+        if name not in path:
+            if not trig and (seen[name] or calls[name]):
+                raise AssertionError(f"{label}: {name} is not on the path "
+                                     f"but launched {seen[name]} times, "
+                                     f"called {calls[name]} times")
+            continue
+        ok = (seen[name] >= replays and seen[name] % replays == 0
+              and calls[name] >= eager_steps + captures) if trig else (
+            seen[name] == replays and calls[name] == eager_steps + captures)
+        if "profile_eager" in out:
+            ok = ok and out["profile_eager"]["launches"][name] == seen[name]
+        if not ok:
+            raise AssertionError(
+                f"{label}: {name}: {seen[name]} launches in {replays} "
+                f"replays, {calls[name]} wrapper calls in {eager_steps} "
+                f"eager steps and {captures} captures; eager window: "
+                f"{out.get('profile_eager', {}).get('launches')}")
+
+
+def _through_graphs(torch, label, path, call):
+    """``call()``, a driver's run whose chunks go through
+    ``Trainer.make_jitted`` (one call of each chunk, as the evaluate
+    driver makes), with those chunks kept: the wrappers' calls in the run,
+    then a profiler window of replays of each chunk's graph, held to
+    ``path`` as the jitted phase's (:func:`_assert_captured`). Returns
+    ``call()``'s result and a record: the windows' launches by form and
+    their steps, the replayed steps, the wrappers' calls inside the
+    chunks' calls (the driver's resets outside them also launch)."""
+    from crowdnav_tpu_torch.parallel.runtime import JittedChunk, Trainer
+    chunks, make, run = [], Trainer.make_jitted, JittedChunk.__call__
+    calls = {name: 0 for name, _ in KERNEL_EVENTS}
+
+    def keep(self):
+        chunks.append(make(self))
+        return chunks[-1]
+
+    def counted(self, state):
+        _reset_launches()
+        state = run(self, state)
+        for name, n in _read_launches().items():
+            calls[name] += n
+        return state
+
+    with mock.patch.object(Trainer, "make_jitted", keep), \
+            mock.patch.object(JittedChunk, "__call__", counted):
+        result = call()
+    torch.cuda.synchronize()
+    out = {"chunks": len(chunks), "captures": len(chunks),
+           "steps": sum(c.trainer.tcfg.rollout_chunk for c in chunks),
+           "replayed_steps": sum(c.replays for c in chunks),
+           "wrapper_calls": {"graph": calls}}
+    windows = [_jit_profile(torch, c.graph.replay) for c in chunks]
+    out["profile_graph"] = {
+        "steps": sum(w["steps"] for w in windows),
+        "launches": {k: sum(w["launches"][k] for w in windows)
+                     for k, _ in KERNEL_EVENTS}}
+    _assert_captured(label, out, path)
+    out["launches"] = out["profile_graph"]["launches"]
+    out["launch_steps"] = out["profile_graph"]["steps"]
+    return result, out
+
+
+def _driver_restart(torch):
+    """``drivers/train`` with a collapse restart and a ``--resume``,
+    through the graph, then again through the eager loop (``make_jitted``
+    replaced by ``rollout_chunk``): equal events and the same agent
+    files, bit for bit."""
+    from crowdnav_tpu_torch.drivers import train as dtrain
+    from crowdnav_tpu_torch.parallel.runtime import Trainer
+    runs = {}
+    for mode in ("graph", "eager"):
+        patch = mock.patch.object(Trainer, "make_jitted",
+                                  lambda self: self.rollout_chunk) \
+            if mode == "eager" else contextlib.nullcontext()
+        with tempfile.TemporaryDirectory() as out, patch:
+            lines = []
+            for extra in ([], ["--resume", "--env-steps", "8192"]):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    dtrain.main(JIT_RESTART_FLAGS + ["--outdir", out]
+                                + extra)
+                lines += [json.loads(x) for x in buf.getvalue().splitlines()
+                          if x.startswith("{")]
+            agent_dir = os.path.join(out, "agent_ckpt_td3")
+            files = sorted(f for f in os.listdir(agent_dir)
+                           if f.endswith(".npz"))
+            arrays = {}
+            for f in files:
+                with np.load(os.path.join(agent_dir, f)) as z:
+                    arrays[f] = {k: z[k] for k in z.files
+                                 if k != "run_config"}
+        # the clocks and the allocator's totals differ between the runs
+        drop = ("sps", "sps_ema", "secs", "seconds", "device_memory")
+        runs[mode] = ([{k: v for k, v in e.items() if k not in drop}
+                       for e in lines], arrays)
+    (ev_g, ag_g), (ev_e, ag_e) = runs["graph"], runs["eager"]
+    if ev_g != ev_e:
+        raise AssertionError(f"driver events differ: {ev_g} vs {ev_e}")
+    if sorted(ag_g) != sorted(ag_e) or any(
+            not np.array_equal(ag_g[f][k], ag_e[f][k])
+            for f in ag_g for k in ag_g[f]):
+        raise AssertionError("the agent files differ, graph vs eager")
+    restarts = [e for e in ev_g if e.get("event") == "collapse_restart"]
+    resumed = [e for e in ev_g if e.get("event") == "resumed"]
+    if len(restarts) != 1 or len(resumed) != 1:
+        raise AssertionError(f"expected one restart and one resume: {ev_g}")
+    return {"events": len(ev_g), "restarts": len(restarts),
+            "resumed_at": resumed[0]["step"], "agent_files": sorted(ag_g),
+            "identical": True}
+
+
+def phase_jitted(torch, smi):
+    """``Trainer.make_jitted`` against the eager chunk, each from one
+    seed: the ``bench.py`` cell, ``train_forms``' two paths, DDPG, SAC
+    and DQN at ``train_agents``' widths, the TD3 evaluation at 1,024 envs
+    x 500 steps; the driver's collapse restart and resume. Each graph
+    path's launches are those of its profiler window of replays."""
+    from crowdnav_tpu_torch.drivers import evaluate
+    from crowdnav_tpu_torch.drivers import train as dtrain
+    bench = _bench_module()
+    result, paths = {"card": smi}, {}
+
+    def counted(name, out, path):
+        _assert_captured(name, out, path)
+        paths[f"jitted_{name}"] = {"launches": out["profile_graph"]
+                                   ["launches"],
+                                   "steps": out["profile_graph"]["steps"]}
+        result[name] = out
+
+    t0 = time.perf_counter()
+    trainer = bench.build(bench.parser().parse_args(
+        ["--iters", str(JIT_TIMED_CHUNKS)]), learning=True)
+    cell = _jit_pair(torch, trainer, 1 + JIT_TIMED_CHUNKS, "cell",
+                     profile=True)
+    cell["flags"] = " ".join(bench.flags(bench.parser().parse_args([])))
+    cell["seconds"] = time.perf_counter() - t0
+    counted("cell", cell, ("raycast", "track_cp_topk_pallas", "libm_sincos",
+                           "libm_atan2"))
+    del trainer
+    emit({"phase": "jitted", "part": "cell", **cell})
+
+    for name, (flags, over, path) in FORM_PATHS.items():
+        t0 = time.perf_counter()
+        trainer = dtrain.build(dtrain.parser().parse_args(
+            FORM_FLAGS + flags), **over)
+        out = _jit_pair(torch, trainer, JIT_FORM_CHUNKS, name)
+        out["seconds"] = time.perf_counter() - t0
+        counted(name, out, path)
+        del trainer
+    for algo in ("ddpg", "sac", "dqn"):
+        t0 = time.perf_counter()
+        trainer = dtrain.build(dtrain.parser().parse_args(
+            AGENT_FLAGS[algo] + ["--device", "cuda"]))
+        out = _jit_pair(torch, trainer, JIT_AGENT_CHUNKS, algo)
+        out["seconds"] = time.perf_counter() - t0
+        counted(algo, out, _path_kernels(algo))
+        del trainer
+    emit({"phase": "jitted", "part": "forms_and_agents",
+          **{k: result[k] for k in (*FORM_PATHS, "ddpg", "sac", "dqn")}})
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    params, meta = evaluate.load_actor_file(ACTOR_FILE)
+    agent = evaluate.build_agent(meta and meta.get("agent_config"), 398,
+                                 dev, "td3", EVAL_ENVS)
+    agent.load_actor(evaluate.flax_actor_to_state_dict(params))
+    trainer = evaluate.scenario_trainer(
+        agent, "crowd_dense", "crowd", EVAL_ENVS, EVAL_STEPS, 0,
+        jitter=1.0, device=dev)
+    ev = _evaluate_pair(torch, trainer)
+    ev["seconds"] = time.perf_counter() - t0
+    counted("evaluate", ev, XLA_KERNELS)
+    del trainer
+    t0 = time.perf_counter()
+    result["driver_restart"] = _driver_restart(torch)
+    result["driver_restart"]["seconds"] = time.perf_counter() - t0
+    emit({"phase": "jitted", "part": "evaluate_and_driver",
+          "evaluate": result["evaluate"],
+          "driver_restart": result["driver_restart"]})
+    return paths
+
+
+def _evaluate_pair(torch, trainer):
+    """The evaluation chunk (one chunk of ``EVAL_STEPS``), eager and
+    through the graph, each from one seed: states and summaries equal;
+    host and event ms a step, the wrappers' calls on each side, a
+    profiler window of each."""
+    out = {"envs": trainer.tcfg.n_envs, "steps": EVAL_STEPS}
+    eager = trainer.init(0)
+    _reset_launches()
+    eager, out["eager"] = _timed(torch, trainer.rollout_chunk, eager, 1)
+    eager_calls = _read_launches()
+    run = trainer.make_jitted()
+    graph = trainer.init(0)
+    _reset_launches()
+    graph, out["graph"] = _timed(torch, run, graph, 1)
+    out["wrapper_calls"] = {"eager": eager_calls, "graph": _read_launches()}
+    out["replayed_steps"] = run.replays
+    out["capture_s"] = run.capture_s
+    for side in ("eager", "graph"):
+        out[side]["host_ms_per_step"] = out[side]["wall_s"] * 1e3 \
+            / EVAL_STEPS
+        out[side]["event_ms_per_step"] = out[side]["event_ms"] / EVAL_STEPS
+    n, fields, elements = _state_differ(torch, graph, eager)
+    out["differing"], out["elements"] = n, elements
+    if n:
+        raise AssertionError(f"evaluate: graph vs eager: {n} differing "
+                             f"elements: {fields}")
+    s_g, graph = trainer.drain_stats(graph)
+    s_e, eager = trainer.drain_stats(eager)
+    _same_summary("evaluate", s_g, s_e)
+    out["summary"] = {k: s_g[k] for k in (
+        "episodes", "successes", "success_rate", "mean_ego_safety",
+        "mean_social_safety")}
+    box = [eager]
+
+    def eager_step():
+        box[0] = trainer._train_step(box[0])
+
+    out["profile_eager"] = _jit_profile(torch, eager_step)
+    out["profile_graph"] = _jit_profile(torch, run.graph.replay)
+    return out
 
 
 # the other learners at the widths of their JAX records: DDPG as
@@ -1730,16 +2210,16 @@ def phase_evaluate_agents(torch):
     launches, rows = {}, {}
     for algo, (ckpt, suite, record, source) in AGENT_EVAL.items():
         with tempfile.TemporaryDirectory() as out:
-            _reset_launches()
             t0 = time.perf_counter()
-            results = evaluate.main(
-                ["--algo", algo, "--suite", suite, *ckpt, "--n-envs",
-                 str(AGENT_EVAL_ENVS), "--max-steps", str(EVAL_STEPS),
-                 "--jitter", "1.0", "--seed", "0", "--outdir", out,
-                 "--device", "cuda"])
-            torch.cuda.synchronize()
+            results, graphs = _through_graphs(
+                torch, f"{algo} evaluate", _path_kernels(algo),
+                lambda: evaluate.main(
+                    ["--algo", algo, "--suite", suite, *ckpt, "--n-envs",
+                     str(AGENT_EVAL_ENVS), "--max-steps", str(EVAL_STEPS),
+                     "--jitter", "1.0", "--seed", "0", "--outdir", out,
+                     "--device", "cuda"]))
             wall = time.perf_counter() - t0
-            launches[algo] = _read_launches()
+            launches[algo] = graphs["launches"]
         s = results[0]
         port = wilson(s["successes"], s["episodes"])
         rec = wilson(*record)
@@ -1756,11 +2236,7 @@ def phase_evaluate_agents(torch):
                       "mean_steps": s["mean_steps"],
                       "rollout_s": s["timelapse"], "wall_s": wall,
                       "env_steps_per_s": AGENT_EVAL_ENVS * EVAL_STEPS
-                      / s["timelapse"], "launches": launches[algo]}
-        for name in _path_kernels(algo):
-            if launches[algo][name] < EVAL_STEPS:
-                raise AssertionError(f"{algo} evaluate: {name} launched "
-                                     f"{launches[algo][name]} times")
+                      / s["timelapse"], **graphs}
     emit({"phase": "evaluate_agents", "envs": AGENT_EVAL_ENVS,
           "steps": EVAL_STEPS, "agents": rows})
     bad = [a for a, r in rows.items() if not r["overlap"]]
@@ -2403,10 +2879,12 @@ TRIG_SAMPLES = 1 << 20
 
 def _n_differ(torch, a, b):
     """Elements of ``a`` and ``b`` (same shape and dtype) that differ bit
-    for bit."""
-    a, b = a.cpu().contiguous(), b.cpu().contiguous()
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
+    for bit, counted on ``a``'s device."""
+    a, b = a.contiguous(), b.to(a.device).contiguous()
+    if a.dtype.is_floating_point:
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a = a.view(bits[a.element_size()])
+        b = b.view(bits[b.element_size()])
     return int((a != b).sum())
 
 
@@ -2745,46 +3223,49 @@ KERNELS = (
     ("raycast", "crowdnav_tpu_torch/kernels/csrc/raycast.cu",
      "crowdnav_tpu/ops/lidar_pallas.py:32",
      "_raycast_kernel, launched by scan_batch_pallas (the XLA form of "
-     "lidar.scan)", "train_pallas"),
+     "lidar.scan)", "jitted_cell"),
     ("raycast_pallas", "crowdnav_tpu_torch/kernels/csrc/raycast.cu",
      "crowdnav_tpu/ops/lidar_pallas.py:32",
      "_raycast_kernel, launched by scan_batch_pallas (its own arithmetic, "
-     "lidar_backend='pallas')", "rollout_pallas"),
+     "lidar_backend='pallas')", "jitted_pallas_backends_noise"),
     ("track_cp_topk", "crowdnav_tpu_torch/kernels/csrc/track_cp_topk.cu",
      "crowdnav_tpu/ops/risk_pallas.py:61",
      "_kernel, launched by track_cp_topk_batch (the XLA chain's "
-     "arithmetic, risk_backend='xla')", "train"),
+     "arithmetic, risk_backend='xla')", "jitted_evaluate"),
     ("track_cp_topk_pallas",
      "crowdnav_tpu_torch/kernels/csrc/track_cp_topk.cu",
      "crowdnav_tpu/ops/risk_pallas.py:61",
      "_kernel, launched by track_cp_topk_batch (its own arithmetic, "
-     "risk_backend='pallas')", "train_pallas"),
+     "risk_backend='pallas')", "jitted_cell"),
     ("track_cp_topk_strict",
      "crowdnav_tpu_torch/kernels/csrc/track_cp_topk.cu",
      "crowdnav_tpu/ops/risk_pallas.py:61",
      "_kernel's chain under strict_quirks (the XLA chain's strict first "
      "track speed and top-K, crowdnav_tpu/ops/risk.py:349,388)",
-     "rollout_strict"),
+     "jitted_strict_quirks"),
     ("libm_sincos", "crowdnav_tpu_torch/kernels/csrc/libm_trig.cu",
      "crowdnav_tpu/envs/world.py:196",
      "no TPU kernel: the C library's cosf/sinf that the reference's CPU "
      "step calls (world.py:196, ops/lidar.py:41, envs/crowd_env.py:127)",
-     "train_pallas"),
+     "jitted_cell"),
     ("libm_atan2", "crowdnav_tpu_torch/kernels/csrc/libm_trig.cu",
      "crowdnav_tpu/ops/geom.py:34",
      "no TPU kernel: the C library's atan2f that the reference's CPU step "
-     "calls (ops/geom.py:34, envs/world.py:143)", "train_pallas"))
+     "calls (ops/geom.py:34, envs/world.py:143)", "jitted_cell"))
 
 
 def kernel_line(smi, stats, paths, evaluate, train_agents, eval_agents):
     """One entry per kernel form: device time, bound, plain and library
     times at 16,384 envs (and every measured shape, with the earlier
-    designs' times); ``launches`` on the path that runs the form
-    (``launches_path`` names it: the bench cell's training at full width
-    with the Pallas tracker, the main path; the default configuration's
-    training; the ``forms_rollout`` runs of the Pallas and strict forms),
-    and the launches on every other path: each training run, the TD3
-    evaluation, DDPG's, SAC's and DQN's training and evaluation."""
+    designs' times); ``launches`` in the profiler's window of replays of
+    the captured graph that runs the form (``launches_path`` names it: the
+    bench cell's training through ``Trainer.make_jitted``, the main path,
+    for the forms it runs; the Pallas backends' and the strict quirks'
+    training;
+    the TD3 evaluation for the tracker's XLA form), and the launches on
+    every other path: each training run, the TD3 evaluation, DDPG's,
+    SAC's and DQN's training and evaluation, each graph path
+    (``launches_jitted_<path>``)."""
     kernels = []
     for name, src, replaces, what, path in KERNELS:
         st = stats[name]
@@ -2796,8 +3277,9 @@ def kernel_line(smi, stats, paths, evaluate, train_agents, eval_agents):
             "replaces": replaces, "tpu_kernel": f"{replaces} {what}",
             "launches": run["launches"][name], "launches_path": path,
             "launches_per_step": run["launches"][name] / run["steps"],
-            "launches_evaluate": evaluate[name],
-            "launches_per_evaluate_step": evaluate[name] / EVAL_STEPS,
+            "launches_evaluate": evaluate["launches"][name],
+            "launches_per_evaluate_step": evaluate["launches"][name]
+            / evaluate["steps"],
             "max_abs_err": st["max_abs"], "max_abs_diff": st["max_abs"],
             "ms": big["device_ms"], "kernel_ms": big["device_ms"],
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
@@ -2862,6 +3344,7 @@ def main():
     evaluate = phase_evaluate(torch)
     train = phase_train(torch, dev)
     train_pallas = phase_train_pallas(torch)
+    jitted = phase_jitted(torch, smi)
     train_forms = phase_train_forms(torch)
     phase_bf16(torch, dev)
     phase_tabular(torch)
@@ -2894,6 +3377,7 @@ def main():
         paths[name] = {"launches": counts, "steps": FORM_CHUNK}
     for name, r in rollouts.items():
         paths[name] = {"launches": r["launches"], "steps": r["steps"]}
+    paths.update(jitted)
     paths["step_parity"] = step_parity
     paths["scenario_parity"] = scenario_parity
     emit({"kernels": kernel_line(smi, stats, paths, evaluate, train_agents,

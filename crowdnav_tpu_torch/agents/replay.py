@@ -139,7 +139,8 @@ class ReplayBuffer:
         tests). Observations stay in the storage dtype."""
         if idx is None:
             idx = self.sample_indices(state, batch_size, gen)
-        idx = idx.to(state.reward.device).long()
+        else:
+            idx = idx.to(state.reward.device).long()
         bi, ri = idx // self.block, idx % self.block
         return Transition(obs=state.obs[bi, ri], action=state.action[bi, ri],
                           reward=state.reward[bi, ri],

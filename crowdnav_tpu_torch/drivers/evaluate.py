@@ -23,7 +23,9 @@ written before ``run_config.json`` existed) the agent takes its config's
 defaults. ``--trajectory`` adds, per scenario, one env's greedy rollout:
 the reference's trajectory CSV, a path plot and the last frame
 (:func:`trace_scenario`; the plots need matplotlib, and without it the
-flag raises after the CSV is written).
+flag raises after the CSV is written). Each scenario's chunk runs through
+``Trainer.make_jitted`` (on the card one captured CUDA graph of the step),
+as the JAX driver runs its jitted chunk.
 """
 from __future__ import annotations
 
@@ -88,14 +90,14 @@ def build_agent(agent_cfg: dict | None, obs_dim: int, device,
                                      device)[0]
 
 
-def evaluate_scenario(agent, world: str, behavior: str, n_envs: int,
-                      max_steps: int, seed: int, jitter: float = 0.0,
-                      ablation: str | None = None, robot: str | None = None,
-                      device="cuda", algo: str = "td3"):
-    """One scenario, ``n_envs`` greedy envs, one chunk of ``max_steps``;
-    only episodes that complete inside the chunk count. With ``jitter``
-    every env and every auto-reset (through a reset bank of ``n_envs``
-    entries) starts from a distinct randomized spawn."""
+def scenario_trainer(agent, world: str, behavior: str, n_envs: int,
+                     max_steps: int, seed: int, jitter: float = 0.0,
+                     ablation: str | None = None, robot: str | None = None,
+                     device="cuda", algo: str = "td3") -> Trainer:
+    """The no-learn trainer of one scenario: ``n_envs`` greedy envs, one
+    chunk of ``max_steps``; with ``jitter`` every env and every
+    auto-reset (through a reset bank of ``n_envs`` entries) starts from a
+    distinct randomized spawn."""
     cfg = make_config(world, behavior, max_steps=max_steps, jitter=jitter,
                       ablation=ablation, robot=robot)
     env_cls = CrowdEnv if algo in RISK_ENV_ALGOS else SimpleEnv
@@ -105,12 +107,22 @@ def evaluate_scenario(agent, world: str, behavior: str, n_envs: int,
                          f"{env.obs_dim}")
     tcfg = TrainerConfig(n_envs=n_envs, rollout_chunk=max_steps,
                          learning=False, reset_bank=n_envs if jitter else 0)
-    trainer = Trainer(env, agent, tcfg, discrete=algo in DISCRETE_ALGOS)
+    return Trainer(env, agent, tcfg, discrete=algo in DISCRETE_ALGOS)
+
+
+def evaluate_scenario(agent, world: str, behavior: str, n_envs: int,
+                      max_steps: int, seed: int, jitter: float = 0.0,
+                      ablation: str | None = None, robot: str | None = None,
+                      device="cuda", algo: str = "td3"):
+    """One scenario (:func:`scenario_trainer`) through the jitted chunk;
+    only episodes that complete inside the chunk count."""
+    trainer = scenario_trainer(agent, world, behavior, n_envs, max_steps,
+                               seed, jitter, ablation, robot, device, algo)
     state = trainer.init(seed)
-    if env.device.type == "cuda":
-        torch.cuda.synchronize(env.device)
+    if trainer.device.type == "cuda":
+        torch.cuda.synchronize(trainer.device)
     t0 = time.perf_counter()
-    state = trainer.rollout_chunk(state)
+    state = trainer.make_jitted()(state)
     summary, state = trainer.drain_stats(state)
     summary["timelapse"] = round(time.perf_counter() - t0, 2)
     summary["scenario"] = f"{world}/{behavior}"

@@ -27,7 +27,9 @@ state (``ckpt_<algo>/rank<i>``) for ``--resume``. ``--profile-dir``
 writes a Chrome trace of chunk 2 (``utils/profiling.trace``).
 ``--risk-backend pallas`` runs the tracker kernel's Pallas form,
 ``--learner-dtype bfloat16`` TD3's bfloat16 matmuls; the port adds
-``--buffer-size``. Config fields the JAX
+``--buffer-size``. The chunks run through ``Trainer.make_jitted`` (on the
+card one captured CUDA graph of the step), as the JAX driver's jitted
+chunk; the sharded learner's through ``rollout_chunk``. Config fields the JAX
 driver does not expose (``lidar_backend``, ``strict_quirks``) reach the
 env through :func:`build`'s overrides. Three faults of the JAX driver
 are not carried over: the final attempt's
@@ -392,6 +394,16 @@ def _train(args, device):
                                extra_headers=["greedy_episodes",
                                               "greedy_success_rate"])
 
+    def chunk_runner():
+        # the chunk over the state's fixed buffers, on the card one
+        # captured CUDA graph of the step (the JAX driver's jitted, donated
+        # chunk); the sharded learner all-reduces through the host, which
+        # a graph cannot capture (NCCL capture is queued), so it steps
+        # eagerly
+        return trainer.rollout_chunk if isinstance(trainer, ShardedTrainer) \
+            else trainer.make_jitted()
+
+    run = chunk_runner()
     spc = args.n_envs * args.chunk
     n_chunks = max(1, int((args.env_steps - steps_done) // spc))
     throughput = StepThroughput(spc, device=trainer.device)
@@ -408,7 +420,7 @@ def _train(args, device):
         # a trace of chunk 2 (past the first chunks' warm-up), as the JAX
         # driver
         with trace_if(args.profile_dir, chunk == 2, f"chunk2_rank{rank}"):
-            state = trainer.rollout_chunk(state)
+            state = run(state)
             tput = throughput.tick()
         summary, state = trainer.drain_stats(state)
         if main_rank:
@@ -440,8 +452,11 @@ def _train(args, device):
                           "new_seed": args.seed + 1009 * attempt})
                     wasted_steps += steps_done + (chunk + 1) * spc
                     steps_done = 0
-                    state = None      # free the ring before the next one
+                    # free the ring and the chunk's buffers before the
+                    # next ones; the new chunk captures its own graph
+                    state = run = None
                     state = trainer.init(args.seed + 1009 * attempt)
+                    run = chunk_runner()
                     n_chunks = max(1, int(args.env_steps // spc))
                     chunk = 0
                     verdict_done = False

@@ -20,6 +20,7 @@ The per-step noise knobs (``actuation_noise``, ``dt_jitter``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -40,8 +41,15 @@ class StepOutput(NamedTuple):
     done: torch.Tensor    # (N,) bool
 
 
+@functools.lru_cache(maxsize=None)
+def _goal_tensor(goal: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(goal, dtype=F32, device=device)
+
+
 def _goal(cfg: EnvConfig, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(cfg.goal, dtype=F32, device=like.device)
+    """The goal (2,), made once per goal and device: a step copies nothing
+    from the host (a captured step may not). Read only."""
+    return _goal_tensor(tuple(cfg.goal), like.device)
 
 
 def _goal_box(pos, center, eps):

@@ -36,10 +36,12 @@ def _tables_cpu(n_scans: int):
     return nm.cos(a), nm.sin(a)
 
 
+@functools.lru_cache(maxsize=None)
 def beam_tables(n_scans: int, device="cpu"):
     """``(cos(i deg), sin(i deg))`` for i < ``n_scans``, float32, as the
     JAX package's compiler folds them (the C library's ``cosf``/``sinf``
-    of ``f32(i) * f32(pi/180)``)."""
+    of ``f32(i) * f32(pi/180)``); made once per device, so that a step
+    copies nothing from the host (a captured step may not). Read only."""
     ca, sa = _tables_cpu(n_scans)
     return ca.to(device), sa.to(device)
 

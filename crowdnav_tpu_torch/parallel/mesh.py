@@ -137,6 +137,16 @@ class ShardedTrainer(Trainer):
             state.gen.manual_seed(rank_seed(seed, self.mesh.rank))
         return state
 
+    def make_jitted(self):
+        """Not ported yet: the ranks all-reduce through
+        ``torch.distributed`` on the host (gloo), which a CUDA graph cannot
+        capture; the sharded chunk's capture over NCCL is the next slice of
+        its kind (``ROADMAP.md`` item 9b). ``rollout_chunk`` runs it."""
+        raise NotImplementedError(
+            "ShardedTrainer.make_jitted: the sharded learner's all-reduce "
+            "is not capturable yet (capture over NCCL is queued); use "
+            "rollout_chunk")
+
     def _rows_written(self, replay) -> int:
         return int(self.mesh.sum_(replay.size.clone()).item())
 

@@ -15,13 +15,21 @@ makes no device-to-host read. Every draw comes from the state's
 generator, or from ``draws`` (:class:`StepDraws`, one per step), through
 which a test feeds the JAX package's draws.
 
-Setting ``Trainer.spans`` to a list turns on timing: each step then
-appends five recorded CUDA events, ``(start, acted, stepped,
-added, learned)``, read by ``span_ms``; off (None), nothing is recorded.
+``Trainer.make_jitted`` is the JAX package's ``jax.jit(rollout_chunk,
+donate_argnums=(0,))``: a :class:`JittedChunk` that runs the chunk over a
+state at fixed addresses, updated in place, and on a card replays one
+captured CUDA graph of the step per step. Its chunk equals
+``rollout_chunk``'s bit for bit.
+
+Setting ``Trainer.spans`` to a list turns on timing of the eager loop
+(``rollout_chunk``): each step then appends five recorded CUDA events,
+``(start, acted, stepped, added, learned)``, read by ``span_ms``; off
+(None), nothing is recorded.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -30,6 +38,13 @@ from crowdnav_tpu_torch.agents.replay import ReplayBuffer, Transition
 from crowdnav_tpu_torch.agents.td3 import eps_spectrum
 from crowdnav_tpu_torch.envs.crowd_env import select_rows
 from crowdnav_tpu_torch.envs.world import EnvState
+from crowdnav_tpu_torch.utils.tree import map_tensors, named_tensors
+
+# eager steps with the learn gate open before the capture, on the capture
+# stream: every first use (the kernel library's load and each kernel's
+# first launch, cuBLAS's workspace of that stream, the cached constant
+# tables) happens in them, outside the capture
+WARMUP_STEPS = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,6 +347,19 @@ class Trainer:
                                      else draws[t])
         return state
 
+    def make_jitted(self) -> "JittedChunk":
+        """The chunk as one compiled program over a donated state, the
+        JAX package's ``jax.jit(rollout_chunk, donate_argnums=(0,))``: a
+        :class:`JittedChunk`, ``run(state) -> state``. ``spans`` times the
+        eager loop only (``rollout_chunk``)."""
+        if self.spans is not None:
+            raise ValueError("make_jitted: Trainer.spans records events "
+                             "per eager step; time rollout_chunk instead")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("make_jitted: a CUDA trainer, but CUDA is "
+                               "not available")
+        return JittedChunk(self)
+
     def _host_stats(self, values: list) -> list:
         """The completed-episode counters and sums, on the host."""
         return [v.item() for v in values]
@@ -367,3 +395,149 @@ class Trainer:
             init_stats(self.tcfg.n_envs, self.device),
             ep_reward=s.ep_reward, ep_steps=s.ep_steps)
         return summary, dataclasses.replace(state, stats=fresh)
+
+
+def _own(state: TrainerState) -> TrainerState:
+    """``state`` with each tensor its own buffer: a tensor that shares
+    memory with an earlier one (a reset's ``done`` and
+    ``episode_success`` are one tensor) is cloned; every other tensor is
+    adopted as it is."""
+    seen = set()
+
+    def own(t):
+        if t.numel() and t.untyped_storage().data_ptr() in seen:
+            t = t.clone()
+        if t.numel():
+            seen.add(t.untyped_storage().data_ptr())
+        return t
+
+    return map_tensors(own, state)
+
+
+class JittedChunk:
+    """``run(state) -> state``: ``tcfg.rollout_chunk`` steps of the
+    trainer over a state at fixed addresses (:meth:`Trainer.make_jitted`).
+
+    The first call adopts the state's tensors as the buffers of every
+    later step: each step computes the new state from them and copies it
+    back into them (``copy_``), the counterpart of JAX's donation. A later
+    call with tensors at other addresses (the fresh statistics of
+    ``drain_stats``, a restarted or restored state, a new learner scalar)
+    first copies them in, and another generator's state into the
+    buffers' generator. The caller's state is consumed: the state
+    returned is the buffers.
+
+    On a CUDA trainer the step is captured once as a CUDA graph and
+    replayed once a step. The learn gate reads the ring's size on the host
+    until it opens, so the steps before it run eagerly; then
+    ``WARMUP_STEPS`` eager steps run on the capture stream, and the step
+    is captured with the gate open (an evaluation trainer, which has no
+    gate, after the warm-up). These are steps of the chunk. The trainer's
+    generator is registered with the graph, so that a replayed step draws
+    what an eager step would. No step of the capture may read the device
+    from the host (``torch.cuda.set_sync_debug_mode("error")`` around
+    it). A failed capture or replay raises; nothing falls back to the
+    eager loop. On a CPU trainer the same steps run eagerly.
+
+    The kernel wrappers count their calls, the capture's among them, and
+    no replay: the kernels a replay runs show in a profiler's trace.
+    ``replays`` counts the replayed steps, ``capture_s`` the capture's
+    seconds.
+    """
+
+    def __init__(self, trainer: Trainer):
+        self.trainer = trainer
+        self.state: Optional[TrainerState] = None
+        self.graph = None
+        self.warm = 0
+        self.replays = 0
+        self.capture_s: Optional[float] = None
+        self._stream = torch.cuda.Stream(trainer.device) \
+            if trainer.device.type == "cuda" else None
+
+    def __call__(self, state: TrainerState) -> TrainerState:
+        tr = self.trainer
+        if tr.spans is not None:
+            raise ValueError("JittedChunk: Trainer.spans is set; time "
+                             "rollout_chunk instead")
+        if self.state is None:
+            self.state = _own(state)
+        else:
+            self._store(state)
+        left = tr.tcfg.rollout_chunk
+        while left and tr.tcfg.learning and not self.state.learning_open:
+            self._step()
+            left -= 1
+        if tr.device.type != "cuda":
+            for _ in range(left):
+                self._step()
+            return self.state
+        if left and self.warm < WARMUP_STEPS:
+            left -= self._warm_up(min(left, WARMUP_STEPS - self.warm))
+        if left and self.graph is None:
+            self._capture()
+        for _ in range(left):
+            self.graph.replay()
+        self.replays += left
+        return self.state
+
+    def _step(self):
+        self._store(self.trainer._train_step(self.state))
+
+    def _store(self, new: TrainerState):
+        """Copy ``new``'s tensors into the buffers where they are other
+        tensors; a tensor that reads a buffer's memory is cloned first, so
+        that no copy overwrites what a later copy reads."""
+        dst = named_tensors(self.state)
+        src = dict(named_tensors(new))
+        if {name for name, _ in dst} != set(src):
+            raise ValueError(
+                f"JittedChunk: the state's tensors changed: "
+                f"{sorted(set(src) ^ {name for name, _ in dst})}")
+        owned = {t.untyped_storage().data_ptr() for _, t in dst
+                 if t.numel()}
+        pairs = []
+        for name, d in dst:
+            s = src[name]
+            if s is d:
+                continue
+            if (s.shape, s.dtype, s.device) != (d.shape, d.dtype, d.device):
+                raise ValueError(
+                    f"JittedChunk: {name} is {tuple(s.shape)} {s.dtype} on "
+                    f"{s.device}, its buffer {tuple(d.shape)} {d.dtype} on "
+                    f"{d.device}")
+            if s.numel() and s.untyped_storage().data_ptr() in owned:
+                s = s.clone()
+            pairs.append((d, s))
+        for d, s in pairs:
+            d.copy_(s)
+        if new.gen is not self.state.gen:
+            self.state.gen.set_state(new.gen.get_state())
+        self.state.learning_open = new.learning_open
+
+    def _warm_up(self, n: int) -> int:
+        """``n`` eager steps on the capture stream."""
+        dev = self.trainer.device
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self._stream):
+            for _ in range(n):
+                self._step()
+        torch.cuda.current_stream(dev).wait_stream(self._stream)
+        self.warm += n
+        return n
+
+    def _capture(self):
+        dev = self.trainer.device
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.state.gen)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=self._stream):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self._step()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+        self.graph = graph

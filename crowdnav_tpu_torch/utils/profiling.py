@@ -8,9 +8,10 @@ Perfetto); ``annotate`` names a region on that timeline. A chunk's end is
 a device synchronisation: the counter waits for the card before it reads
 the clock, so the rate is that of finished work.
 
+    run = trainer.make_jitted()
     with trace_if("/tmp/trace", chunk == 2):
         with annotate("rollout_chunk"):
-            state = trainer.rollout_chunk(state)
+            state = run(state)
         stats = timer.tick()
 """
 from __future__ import annotations

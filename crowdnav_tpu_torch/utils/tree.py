@@ -47,6 +47,27 @@ def map_tensors(fn, obj):
     return obj
 
 
+def named_tensors(obj, prefix: str = "") -> list:
+    """``[(dotted name, tensor)]`` of every tensor of ``obj``, walked as
+    :func:`map_tensors` walks it (dict keys, tuple and list positions,
+    dataclass fields, in order)."""
+    if isinstance(obj, torch.Tensor):
+        return [(prefix[:-1], obj)]
+    if isinstance(obj, dict):
+        items = obj.items()
+    elif isinstance(obj, (tuple, list)):
+        items = enumerate(obj)
+    elif dataclasses.is_dataclass(obj):
+        items = ((f.name, getattr(obj, f.name))
+                 for f in dataclasses.fields(obj))
+    else:
+        return []
+    out = []
+    for k, v in items:
+        out += named_tensors(v, f"{prefix}{k}.")
+    return out
+
+
 def to_device(obj, device):
     """A copy of ``obj`` (as :func:`map_tensors` walks it) with every
     tensor on ``device``."""

@@ -53,7 +53,8 @@ def main():
         cell = bt.parser().parse_args(["--iters", str(args.no_learn_chunks),
                                        "--n-envs", str(args.envs)])
         for _ in range(args.repeats):
-            no_learn.append(bt.run(cell, False, torch)[0])
+            # the eager loop, which every checkout's Trainer has
+            no_learn.append(bt.run(cell, False, torch, jitted=False)[0])
     from crowdnav_tpu_torch.envs.config import make_config
     from crowdnav_tpu_torch.envs.crowd_env import CrowdEnv
     from crowdnav_tpu_torch.ops import lidar
